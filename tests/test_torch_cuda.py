@@ -1,4 +1,5 @@
-"""The CUDA window-extraction kernel against its plain version, on the card.
+"""The CUDA kernels (K1 window extraction, K2 row-aligned extraction)
+against their plain versions, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc, carries the `cuda` marker
 and skips with a reason elsewhere. This file imports neither jax nor
@@ -12,7 +13,9 @@ import pytest
 import torch
 
 from viso_tpu_torch.geometry import extract as t_ext
+from viso_tpu_torch.geometry import extract_aligned as t_k2
 from viso_tpu_torch.geometry import sampling as t_smp
+from viso_tpu_torch.ops import descriptors as t_desc
 
 
 def _centers(rng, n, H, W):
@@ -80,3 +83,46 @@ def test_sampling_entry_points_launch_the_kernel(rng, cuda_device):
     assert t_ext.launch.launches == before + 2
     assert torch.equal(got, t_ext.extract_plain(imgs[0], base, 24, 24))
     assert torch.equal(got_k, t_ext.extract_plain(imgs, base_k, 16, 16, k=k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,win,k", [(1024, 16, 64), (1024, 24, 128), (2048, 16, 256),
+                                     (2048, 24, 64), (128, 16, 128)])
+def test_k2_matches_plain_on_cuda(rng, cuda_device, n, win, k):
+    """K2 is a pure copy: tiles and origins bit-equal to the plain
+    version at the micro-benchmark's shapes, centres at and beyond every
+    border included."""
+    H, W = 376, 1240
+    img = torch.from_numpy(rng.uniform(0, 255, (H, W)).astype(np.float32)).to(cuda_device)
+    c = torch.from_numpy(_centers(rng, n - 8, H, W)).to(cuda_device)
+    before = t_k2.launch.launches
+    tiles, base = t_k2.extract_windows_aligned(img, c, win, k)
+    torch.cuda.synchronize()
+    assert t_k2.launch.launches == before + 1
+    ref, ref_base = t_k2.extract_plain(img, c, win, k)
+    assert tiles.shape == (n, win + 8, win)
+    assert torch.equal(base, ref_base) and torch.equal(tiles, ref)
+    with pytest.raises(ValueError, match="not a multiple of K"):
+        t_k2.extract_windows_aligned(img, c[:-1], win, k)
+
+
+@pytest.mark.cuda
+def test_descriptors_launch_k1_on_cuda(rng, cuda_device):
+    """descriptors.compute takes its 34x34 windows from K1 on a CUDA image
+    and gives the CPU result (identical windows; matmuls in full f32, so
+    at most a few near-tie bits may flip)."""
+    H, W = 184, 616
+    img = rng.uniform(0, 255, (H, W)).astype(np.float32)
+    kps = np.stack([rng.uniform(0, W, 256), rng.uniform(0, H, 256)], -1).astype(np.float32)
+    mask = rng.uniform(size=256) > 0.1
+    before = t_ext.launch.launches
+    got = t_desc.compute(torch.from_numpy(img).to(cuda_device),
+                         torch.from_numpy(kps).to(cuda_device),
+                         torch.from_numpy(mask).to(cuda_device))
+    torch.cuda.synchronize()
+    assert t_ext.launch.launches == before + 1
+    ref = t_desc.compute(torch.from_numpy(img), torch.from_numpy(kps), torch.from_numpy(mask))
+    got = got.float().cpu()
+    ref = ref.float()
+    assert torch.equal(got != 0, ref != 0)
+    assert int((got != ref).sum()) <= 0.01 * int((ref != 0).sum())

@@ -18,6 +18,7 @@ import torch
 
 from viso_tpu.geometry import extract_pallas as j_ext
 from viso_tpu.geometry import sampling as j_smp
+from viso_tpu_torch import _cuda
 from viso_tpu_torch.geometry import extract as t_ext
 from viso_tpu_torch.geometry import sampling as t_smp
 
@@ -123,16 +124,16 @@ def test_cpu_path_never_launches_and_other_devices_raise(rng):
 def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
     """No toolkit: building the kernel raises (never returns None or falls
     back), naming nvcc."""
-    monkeypatch.setattr(t_ext, "_LIB", None)
-    monkeypatch.setattr(t_ext, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(t_ext, "CUDA_ROOTS", (str(tmp_path / "no-cuda"),))
+    monkeypatch.setattr(_cuda, "_LIBS", {})
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_cuda, "CUDA_ROOTS", (str(tmp_path / "no-cuda"),))
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setenv("PATH", str(tmp_path / "empty-bin"))
-    assert t_ext.find_nvcc() is None
+    assert _cuda.find_nvcc() is None
     with pytest.raises(RuntimeError, match="nvcc not found"):
         t_ext.load_library()
-    assert t_ext._LIB is None
+    assert _cuda._LIBS == {}
     assert not (tmp_path / "build").exists() or not any((tmp_path / "build").iterdir())
 
 
@@ -142,21 +143,26 @@ def test_build_failure_raises_with_compiler_output(monkeypatch, tmp_path):
     fake.parent.mkdir()
     fake.write_text("#!/bin/sh\necho 'error: fake compiler refuses' >&2\nexit 3\n")
     fake.chmod(0o755)
-    monkeypatch.setattr(t_ext, "_LIB", None)
-    monkeypatch.setattr(t_ext, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_cuda, "_LIBS", {})
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="fake compiler refuses"):
         t_ext.load_library()
-    assert not t_ext.library_path().exists()
+    assert not _cuda.library_path(t_ext.SOURCE).exists()
 
 
 def test_port_imports_without_jax():
-    """viso_tpu_torch never imports jax or viso_tpu: the engine imports in a
-    process where importing jax fails."""
+    """viso_tpu_torch never imports jax or viso_tpu: every module of the
+    package imports in a process where importing jax fails."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['viso_tpu'] = None\n"
-        "import viso_tpu_torch.slam.engine, viso_tpu_torch.data.synthetic\n"
-        "import viso_tpu_torch.utils.metrics\n"
+        "import importlib, pkgutil, viso_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(viso_tpu_torch.__path__, "
+        "'viso_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert {'viso_tpu_torch.slam.full', 'viso_tpu_torch.tools.bench_extract', "
+        "'viso_tpu_torch.utils.checkpoint'} <= set(names), names\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'viso_tpu.')) "
         "for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"

@@ -1,0 +1,365 @@
+"""Stereo SLAM of the port (loop database, detection, the keyframe hooks,
+StereoSLAM) against viso_tpu's, on the CPU.
+
+torch cannot reproduce a `jax.random` stream, so where the JAX package
+draws RANSAC hypotheses the port is handed the JAX draw (detection) or
+held to outcome bands (the whole engine).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from viso_tpu.data import synthetic as j_syn
+from viso_tpu.geometry import camera as j_cam
+from viso_tpu.slam import loop_closure as j_lc
+from viso_tpu.slam.engine import FrameResult as JFrameResult
+from viso_tpu.slam.engine import StereoVO as JStereoVO
+from viso_tpu.slam.engine import VOConfig as JVOConfig
+from viso_tpu.slam.full import StereoSLAM as JStereoSLAM
+from viso_tpu_torch.geometry import camera as t_cam
+from viso_tpu_torch.slam import loop_closure as t_lc
+from viso_tpu_torch.slam.engine import FrameResult, StereoVO, VOConfig
+from viso_tpu_torch.slam.full import StereoSLAM
+from viso_tpu_torch.utils import metrics
+
+torch.set_num_threads(2)
+
+
+def _random_pose(rng, scale=3.0):
+    from viso_tpu_torch.data.synthetic import so3_exp
+
+    R = so3_exp(rng.normal(0, 0.5, 3))
+    c = rng.uniform(-scale, scale, 3)
+    return R, (-R @ c).astype(np.float32)
+
+
+def _entry(rng, nf):
+    kps = rng.uniform(0, 200, (nf, 2)).astype(np.float32)
+    mask = rng.uniform(size=nf) > 0.2
+    pts = rng.normal(0, 3, (nf, 3)).astype(np.float32)
+    desc = np.where(rng.uniform(size=(nf, 256)) < 0.5, -1.0, 1.0).astype(np.float32)
+    return kps, mask, pts, desc
+
+
+def _two_dbs(params, seed=1):
+    return (j_lc.LoopDatabase(j_lc.LoopParams(**params), seed=seed),
+            t_lc.LoopDatabase(t_lc.LoopParams(**params), seed=seed, device="cpu"))
+
+
+def test_add_and_evict_sequence_identical(rng):
+    """The same insertions give the same slots (two-tier eviction with the
+    seeded jitter) and the same stored state."""
+    params = dict(capacity=12, num_features=16, retain_recent=4)
+    jdb, tdb = _two_dbs(params)
+    slots_j, slots_t = [], []
+    for k in range(40):
+        kps, mask, pts, desc = _entry(rng, 16)
+        R, t = _random_pose(rng)
+        kw = dict(node_id=100 + k, path_len=0.5 * k, rot_len=0.1 * k, seam_t=0.01 * k)
+        slots_j.append(jdb.add(None, jnp.asarray(kps), jnp.asarray(mask), jnp.asarray(pts),
+                               jnp.asarray(mask), R, t, 3 * k,
+                               desc=jnp.asarray(desc, jnp.bfloat16), **kw))
+        # The port takes host copies (pinned, on the SLAM path) and the
+        # descriptors on the device.
+        slots_t.append(tdb.add(None, torch.from_numpy(kps), mask, pts, torch.from_numpy(mask),
+                               R, t, 3 * k, desc=torch.from_numpy(desc).bfloat16(), **kw))
+    assert slots_t == slots_j and len(set(slots_t[12:])) > 4
+    for name in ("kp_uv", "points_w", "points_ok", "R", "t", "frame_id", "node_id",
+                 "path_len", "rot_len", "seam_t", "seam_r", "insert_seq"):
+        np.testing.assert_array_equal(getattr(tdb, name), getattr(jdb, name), err_msg=name)
+    assert tdb.total == jdb.total == 40 and tdb.count == 12
+    np.testing.assert_array_equal(tdb.desc.float().numpy(), np.asarray(jdb.desc, np.float32))
+    np.testing.assert_array_equal(tdb.desc_mask.numpy(), np.asarray(jdb.desc_mask))
+    np.testing.assert_array_equal(tdb.points_w_dev.numpy(), np.asarray(jdb.points_w_dev))
+    np.testing.assert_array_equal(tdb.points_ok_dev.numpy(), np.asarray(jdb.points_ok_dev))
+
+
+def test_gate_packed_identical(rng):
+    """The host gate gives the same decision and candidate on the same
+    packed vectors and database state, across its branches (match and
+    inlier thresholds, drift-scaled bounds, seams, evidence boost)."""
+    params = dict(capacity=8, num_features=8, min_matches=20, min_inliers=15)
+    jdb, tdb = _two_dbs(params)
+    for k in range(8):
+        kps, mask, pts, desc = _entry(rng, 8)
+        R, t = _random_pose(rng, 1.0)
+        kw = dict(node_id=k, path_len=2.0 * k, rot_len=0.3 * k, seam_t=0.2 * (k > 4),
+                  seam_r=0.05 * (k > 4))
+        jdb.add(None, kps, mask, pts, mask, R, t, k, desc=jnp.asarray(desc, jnp.bfloat16), **kw)
+        tdb.add(None, kps, mask, pts, mask, R, t, k, desc=torch.from_numpy(desc).bfloat16(), **kw)
+    accepted = rejected = 0
+    for trial in range(300):
+        best = int(rng.integers(0, 8))
+        R_db, t_db = jdb.R[best], jdb.t[best]
+        R_cur, t_cur = _random_pose(rng, 1.0)
+        # A measured pose near the one odometry implies, off by a drift
+        # that sometimes exceeds the bound.
+        from viso_tpu_torch.data.synthetic import so3_exp
+        dR = so3_exp(rng.normal(0, rng.choice([0.01, 0.3]), 3))
+        R_meas = dR @ R_cur
+        t_meas = t_cur + rng.normal(0, rng.choice([0.05, 1.5]), 3)
+        packed = np.concatenate([
+            [rng.integers(10, 60), best, rng.integers(5, 40), rng.integers(5, 60)],
+            R_meas.reshape(-1), t_meas]).astype(np.float32)
+        kw = dict(path_len=float(rng.uniform(0, 20)), rot_len=float(rng.uniform(0, 3)))
+        if trial % 2:
+            kw.update(seam_t=float(rng.uniform(0, 1)), seam_r=float(rng.uniform(0, 0.2)))
+        cj = jdb._gate_packed(packed, R_cur, t_cur, **kw)
+        ct = tdb._gate_packed(packed, R_cur, t_cur, **kw)
+        assert (cj is None) == (ct is None), trial
+        if cj is None:
+            rejected += 1
+            continue
+        accepted += 1
+        assert (ct.db_index, ct.matches, ct.inliers) == (cj.db_index, cj.matches, cj.inliers)
+        np.testing.assert_array_equal(ct.R_rel, cj.R_rel)
+        np.testing.assert_array_equal(ct.t_rel, cj.t_rel)
+    assert accepted > 10 and rejected > 10
+
+
+def test_detect_fused_matches_reference_with_the_jax_draw():
+    """One detection on the same database and query: the packed vector
+    equals the JAX one (counts and slot exactly, the PnP pose to 1e-4)
+    when the port is handed the hypotheses the JAX key draws."""
+    rng = np.random.default_rng(5)
+    nf = 64
+    params = dict(capacity=8, num_features=nf, guard=1, min_matches=20, min_inliers=15)
+    jdb, tdb = _two_dbs(params)
+    intr_args = (180.0, 180.0, 111.5, 79.5)
+    entries = []
+    for k in range(6):
+        kps, _, _, desc = _entry(rng, nf)
+        pts = np.stack([rng.uniform(-2, 2, nf), rng.uniform(-1, 1, nf),
+                        rng.uniform(3, 7, nf)], -1).astype(np.float32)
+        mask = np.ones(nf, bool)
+        R, t = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+        entries.append((pts, desc))
+        jdb.add(None, kps, mask, pts, mask, R, t, k, desc=jnp.asarray(desc, jnp.bfloat16))
+        tdb.add(None, kps, mask, pts, mask, R, t, k, desc=torch.from_numpy(desc).bfloat16())
+    # Query: entry 2 seen from a moved camera, 10 % of bits flipped, a
+    # fifth of the keypoints replaced by outliers.
+    pts, desc = entries[2]
+    from viso_tpu_torch.data.synthetic import so3_exp
+    Rq, tq = so3_exp([0.02, -0.05, 0.01]), np.array([0.1, -0.05, 0.2], np.float32)
+    pc = pts @ Rq.T + tq
+    kps_q = np.stack([180.0 * pc[:, 0] / pc[:, 2] + 111.5, 180.0 * pc[:, 1] / pc[:, 2] + 79.5],
+                     -1).astype(np.float32)
+    kps_q[::5] = rng.uniform(0, 200, (len(kps_q[::5]), 2))
+    desc_q = desc.copy()
+    desc_q[rng.uniform(size=desc.shape) < 0.1] *= -1
+    perm = rng.permutation(nf)
+    kps_q, desc_q = kps_q[perm], desc_q[perm]
+    mask_q = np.ones(nf, bool)
+    key = jax.random.PRNGKey(3)
+    thresh = (4.0 / 180.0) ** 2
+    eligible = jdb.insert_seq >= 0
+    packed_j = np.asarray(j_lc._detect_fused_kernel(
+        jnp.asarray(desc_q, jnp.bfloat16), jnp.asarray(mask_q), jnp.asarray(kps_q),
+        jdb.desc, jdb.desc_mask, jdb.points_w_dev, jdb.points_ok_dev, jnp.asarray(eligible),
+        j_cam.Intrinsics.create(*intr_args), jnp.asarray(thresh, jnp.float32),
+        jnp.asarray(20, jnp.int32), jnp.asarray(15, jnp.int32), key))
+
+    def jax_draw(ok):
+        logits = jnp.where(jnp.asarray(ok.numpy()), 0.0, -jnp.inf)
+        return torch.from_numpy(np.array(jax.random.categorical(key, logits[None], shape=(512, 6))))
+
+    packed_t = t_lc._detect_fused_kernel(
+        torch.from_numpy(desc_q).bfloat16(), torch.from_numpy(mask_q), torch.from_numpy(kps_q),
+        tdb.desc, tdb.desc_mask, tdb.points_w_dev, tdb.points_ok_dev,
+        torch.from_numpy(eligible), t_cam.Intrinsics.create(*intr_args), thresh, 20, 15,
+        jax_draw).numpy()
+    assert packed_t.shape == (16,)
+    np.testing.assert_array_equal(packed_t[:4], packed_j[:4])
+    assert packed_t[1] == 2 and packed_t[3] >= 40
+    np.testing.assert_allclose(packed_t[4:], packed_j[4:], atol=1e-4)
+    # Near the true pose: the refinement weighs every match, outliers with
+    # a Huber weight, so it sits ~1e-2 off (as the JAX result does).
+    np.testing.assert_allclose(packed_t[4:13].reshape(3, 3), Rq, atol=2e-2)
+    # No candidate (every entry ineligible but one that does not match):
+    # identity, zero, no inliers, as the JAX package's skipped branch.
+    only = np.zeros(8, bool)
+    only[5] = True
+    packed_n = t_lc._detect_fused_kernel(
+        torch.from_numpy(desc_q).bfloat16(), torch.from_numpy(mask_q), torch.from_numpy(kps_q),
+        tdb.desc, tdb.desc_mask, tdb.points_w_dev, tdb.points_ok_dev, torch.from_numpy(only),
+        t_cam.Intrinsics.create(*intr_args), thresh, 20, 15,
+        lambda ok: t_lc.pnp.draw_hypotheses(tdb.generator, ok)).numpy()
+    assert packed_n[1] == 5 and packed_n[0] < 20 and packed_n[3] == 0
+    np.testing.assert_array_equal(packed_n[4:], np.concatenate([np.eye(3).reshape(-1), np.zeros(3)]))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdb.detect_fused_sim3()
+
+
+def test_recent_motion_and_seam_span_match_reference(rng):
+    """The engine hooks the SLAM layer reads, on the same per-frame
+    results in both packages."""
+    H, W = 64, 96
+    jvo = JStereoVO(JVOConfig(height=H, width=W))
+    tvo = StereoVO(VOConfig(height=H, width=W), device="cpu")
+    for k in range(30):
+        R, t = _random_pose(rng, 0.3 * k + 0.1)
+        n = int(rng.choice([5, 120]))
+        jvo.results.append(JFrameResult(R=jnp.asarray(R), t=jnp.asarray(t), num_tracked=n))
+        tvo.results.append(FrameResult(R=torch.from_numpy(R), t=torch.from_numpy(t),
+                                       num_tracked=n))
+    sj, rj = jvo._recent_motion()
+    st, rt = tvo._recent_motion()
+    np.testing.assert_allclose([st, rt], [sj, rj], rtol=1e-6)
+    for f in (0, 3, 17, 29, 40):
+        assert tvo._seam_span(f) == jvo._seam_span(f)
+    tvo.results = tvo.results[:4]
+    jvo.results = jvo.results[:4]
+    assert tvo._recent_motion() == jvo._recent_motion() == (None, None)
+    assert tvo._post_keyframe(0, None) is None           # the base hook is a no-op
+    jvo.close()
+    tvo.close()
+
+
+# tests/test_slam.py's orbit: 160x224, 72 frames, the room at half=6.
+H, W = 160, 224
+INTR = dict(fx=180.0, fy=180.0, cx=W / 2 - 0.5, cy=H / 2 - 0.5)
+N_FRAMES = 72
+# stats_deterministic makes the keyframe schedule a function of the
+# computed values only. At the default 2-frame lag the JAX package's own
+# pose graph does not beat its odometry on this orbit (ATE 0.142 vs
+# 0.134 m, measured on the CPU): its single loop edge corrects the loop's
+# end point but not the ATE. At a 1-frame lag both packages take the same
+# 18 keyframes and close the same loop (node 17 -> 0, 44 inliers).
+SLAM_CFG = dict(
+    height=H, width=W, baseline=0.25, max_keyframes=6, max_landmarks=512,
+    num_features=128, detect_grid=(4, 4), fast_threshold=12.0, max_disparity=48,
+    kf_min_gap=1, kf_max_gap=5, kf_min_visible_frac=0.7,
+    stats_deterministic=True, stats_max_lag=1, **INTR,
+)
+LOOP = dict(capacity=64, num_features=128, guard=8, min_matches=25, min_inliers=15)
+# Measured on the CPU: graph ATE 0.1147 m (JAX) and 0.1287 m (port),
+# odometry ATE 0.1461 / 0.1550 m (0.785x / 0.831x); the loop's end-point
+# error falls from 0.294 to 0.031 m (JAX) and from 0.266 to 0.029 m
+# (port). The gap is the odometry's: either solver gives the same graph
+# ATE (to 1e-6) on either package's graph, and swapping the two loop
+# edges moves it by < 1e-4. The two odometries differ by <= 11 cm, less
+# than the JAX package's own response to +-1e-3 intensity noise (16 cm),
+# and under four such noise draws the ratio spans 0.740-0.828 (JAX) and
+# 0.819-0.861 (port).
+GRAPH_ATE_BAND_M = 0.03
+
+
+@pytest.fixture(scope="module")
+def orbit_runs():
+    room = j_syn.room_scene(np.random.default_rng(11), tex_size=512, half=6.0)
+    intr = j_cam.Intrinsics.create(**INTR)
+    Rs, ts = j_syn.orbit_trajectory(N_FRAMES, radius=2.0)
+    frames = [j_syn.make_stereo_pair(room, intr, R, t, H, W, baseline=0.25)[:2]
+              for R, t in zip(Rs, ts)]
+    jslam = JStereoSLAM(JVOConfig(**SLAM_CFG), j_lc.LoopParams(**LOOP))
+    tslam = StereoSLAM(VOConfig(**SLAM_CFG), t_lc.LoopParams(**LOOP), device="cpu")
+    for il, ir in frames:
+        jslam.process(il, ir)
+        tslam.process(il, ir)
+    jslam.join()
+    tslam.join()
+    yield jslam, tslam, Rs, ts
+    jslam.close()
+    tslam.close()
+
+
+def _graph_and_odometry_ate(slam, Rs, ts):
+    pg_R, pg_t, frames = slam.graph_trajectory()
+    c_gt = metrics.camera_centers(Rs[frames], ts[frames])
+    ate_pg = metrics.ate_rmse(metrics.camera_centers(pg_R, pg_t), c_gt, align=True,
+                              with_scale=False)
+    raw_R, raw_t = np.stack(slam.pg_raw_R), np.stack(slam.pg_raw_t)
+    ate_odo = metrics.ate_rmse(metrics.camera_centers(raw_R, raw_t), c_gt, align=True,
+                               with_scale=False)
+
+    def end_error(R, t):
+        """Position of the last node in the first node's frame, against
+        ground truth: the error the loop edge measures and corrects."""
+        c = metrics.camera_centers(R, t)
+        d = R[0] @ (c[-1] - c[0])
+        return float(np.linalg.norm(d - Rs[frames[0]] @ (c_gt[-1] - c_gt[0])))
+
+    return ate_pg, ate_odo, end_error(pg_R, pg_t), end_error(raw_R, raw_t)
+
+
+def test_slam_orbit_closes_loop_in_both_packages(orbit_runs):
+    jslam, tslam, Rs, ts = orbit_runs
+    assert tslam.hook_errors == [] and jslam.hook_errors == []
+    for slam in (jslam, tslam):
+        assert len(slam.loops) >= 1 and slam.loops[-1]["to"] <= 2
+    # The same keyframe nodes and the same loop.
+    assert tslam.pg_frame == jslam.pg_frame
+    assert [(lp["from"], lp["to"]) for lp in tslam.loops] == \
+        [(lp["from"], lp["to"]) for lp in jslam.loops]
+    res = {}
+    for name, slam in (("jax", jslam), ("port", tslam)):
+        ate_pg, ate_odo, end_pg, end_odo = _graph_and_odometry_ate(slam, Rs, ts)
+        res[name] = ate_pg
+        # The graph beats odometry on ATE (JAX 0.785x, port 0.831x) and
+        # the loop edge cuts the loop's end-point error at least 5-fold.
+        assert ate_pg < 0.85 * ate_odo, (name, ate_pg, ate_odo)
+        assert end_pg < 0.2 * end_odo, (name, end_pg, end_odo)
+        assert ate_pg < 2.0
+    assert abs(res["port"] - res["jax"]) < GRAPH_ATE_BAND_M, res
+
+
+def test_slam_trajectory_anchors_frames_on_solved_nodes(orbit_runs):
+    """Per-frame trajectory() lives in the graph's world: keyframe rows
+    coincide with the pose-graph solution; frames before the first node
+    do not exist (node 0 is frame 0)."""
+    _, tslam, Rs, _ = orbit_runs
+    R_all, t_all = tslam.trajectory()
+    assert R_all.shape == (N_FRAMES, 3, 3) and np.isfinite(R_all).all()
+    pg_R, pg_t, frames = tslam.graph_trajectory()
+    c_frames = metrics.camera_centers(R_all, t_all)
+    c_pg = metrics.camera_centers(pg_R, pg_t)
+    for k in range(len(frames)):
+        assert np.linalg.norm(c_frames[frames[k]] - c_pg[k]) < 1e-4
+    assert tslam._anchors[0] == 0 and tslam._anchors[-1] == len(frames) - 1
+    assert len(tslam.pg_edges) == len(frames) - 1 + len(tslam.loops)
+
+
+def _f32(x):
+    """float32 numpy copy of a torch tensor (bfloat16 included) or a JAX array."""
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def test_slam_checkpoint_crosses_packages(orbit_runs, tmp_path):
+    """A SLAM checkpoint written by either package loads in the other with
+    every stored field equal (one .npz format)."""
+    from viso_tpu.utils import checkpoint as j_ckpt
+    from viso_tpu_torch.utils import checkpoint as t_ckpt
+
+    jslam, tslam, _, _ = orbit_runs
+    pj, pt = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    j_ckpt.save_slam(pj, jslam, extra={"by": "jax"})
+    t_ckpt.save_slam(pt, tslam, extra={"by": "port"})
+    t_from_j, extra = t_ckpt.load_slam(pj, VOConfig(**SLAM_CFG), t_lc.LoopParams(**LOOP),
+                                       device="cpu")
+    j_from_t, extra2 = j_ckpt.load_slam(pt, JVOConfig(**SLAM_CFG), j_lc.LoopParams(**LOOP))
+    assert extra == {"by": "jax"} and extra2 == {"by": "port"}
+    for src, dst in ((jslam, t_from_j), (tslam, j_from_t)):
+        for name in ("R", "t", "vel_xi"):
+            np.testing.assert_array_equal(np.asarray(getattr(dst, name)),
+                                          np.asarray(getattr(src, name)), err_msg=name)
+        for name in ("kf_R", "points", "obs_uv", "obs_mask"):
+            np.testing.assert_array_equal(np.asarray(getattr(dst.map, name)),
+                                          np.asarray(getattr(src.map, name)), err_msg=name)
+        np.testing.assert_array_equal(np.stack(dst.pg_R), np.stack(src.pg_R))
+        assert dst.pg_frame == src.pg_frame and dst.loops == src.loops
+        assert dst.kf_order == src.kf_order and dst._next_node == len(src.pg_raw_R)
+        # Edge weights are stored as float32.
+        assert [e[:2] + (np.float32(e[4]),) for e in dst.pg_edges] == \
+            [e[:2] + (np.float32(e[4]),) for e in src.pg_edges]
+        for name in ("desc", "desc_mask", "points_w_dev"):
+            np.testing.assert_array_equal(_f32(getattr(dst.loop_db, name)),
+                                          _f32(getattr(src.loop_db, name)), err_msg=name)
+        for name in ("points_w", "R", "node_id", "path_len", "insert_seq"):
+            np.testing.assert_array_equal(getattr(dst.loop_db, name), getattr(src.loop_db, name))
+    t_from_j.close()
+    j_from_t.close()

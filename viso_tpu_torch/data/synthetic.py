@@ -2,8 +2,8 @@
 only; port of `viso_tpu/data/synthetic.py`, whose trajectories call the
 JAX `so3_exp`).
 
-Only what the stereo VO slice needs: the corridor scene, the forward
-trajectory and stereo pairs. Textured planes with known poses, depths
+What the stereo VO and SLAM slices need: the corridor and room scenes,
+the forward and orbit trajectories and stereo pairs. Textured planes with known poses, depths
 and intrinsics give photometrically consistent sequences with exact
 ground truth.
 
@@ -172,6 +172,46 @@ def corridor_scene(rng, tex_size=768, far_z=30.0):
     ground = ground_plane(smooth_texture(rng, tex_size, tex_size), y=1.5)
     scene.planes = [far, left, right, ground]
     return scene
+
+
+def room_scene(rng, tex_size=640, half=6.0):
+    """Closed box (4 walls + ground) for loop-closure trajectories."""
+    scene = PlaneScene()
+
+    def wall(p0, n, e1, e2):
+        return Plane(
+            p0=np.array(p0, float), n=np.array(n, float),
+            e1=np.array(e1, float), e2=np.array(e2, float),
+            texture=smooth_texture(rng, tex_size, tex_size),
+        )
+
+    scene.planes = [
+        wall([0, 0, half], [0, 0, -1], [1, 0, 0], [0, 1, 0]),    # front
+        wall([0, 0, -half], [0, 0, 1], [1, 0, 0], [0, 1, 0]),    # back
+        wall([-half, 0, 0], [1, 0, 0], [0, 0, 1], [0, 1, 0]),    # left
+        wall([half, 0, 0], [-1, 0, 0], [0, 0, 1], [0, 1, 0]),    # right
+        ground_plane(smooth_texture(rng, tex_size, tex_size), y=1.5),
+    ]
+    return scene
+
+
+def orbit_trajectory(n_frames, radius=2.0, total_angle=2 * np.pi, center=(0.0, 0.0, 0.0)):
+    """Camera orbiting `center`, always facing outward: revisits its start.
+
+    Returns world->cam (R, t) arrays; frame n_frames-1 is (nearly) back at
+    the start pose -- the canonical loop-closure trajectory.
+    """
+    Rs, ts = [], []
+    c0 = np.asarray(center, float)
+    for i in range(n_frames):
+        ang = total_angle * i / max(n_frames - 1, 1)
+        # Camera position on the circle; optical axis tangent to it.
+        pos = c0 + radius * np.array([np.sin(ang), 0.0, -np.cos(ang)])
+        R = so3_exp([0.0, ang, 0.0]).T
+        t = -R @ pos
+        Rs.append(R.astype(np.float32))
+        ts.append(t.astype(np.float32))
+    return np.stack(Rs), np.stack(ts)
 
 
 def forward_trajectory(n_frames, step=0.15, yaw_rate=0.0):

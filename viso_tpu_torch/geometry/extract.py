@@ -15,8 +15,8 @@ Dispatch is by the device of the image:
     `viso_tpu_torch/csrc/extract_windows.cu` -- or raise. There is no
     fallback, no size threshold and no switch.
 
-The kernel is built with nvcc at first use into `build/viso_tpu_torch/`
-at the root of the checkout, keyed by a hash of its source and flags,
+The kernel is built with nvcc at first use by `viso_tpu_torch._cuda`
+(into `build/viso_tpu_torch/`, keyed by a hash of its source and flags)
 and loaded through ctypes. `launch.launches` counts kernel launches so
 that a run can show its main path went through the kernel.
 """
@@ -24,93 +24,26 @@ that a run can show its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-_PKG_DIR = Path(__file__).resolve().parents[1]
-SOURCE = _PKG_DIR / "csrc" / "extract_windows.cu"
-BUILD_DIR = _PKG_DIR.parent / "build" / "viso_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
-# Toolkit roots searched after $CUDA_HOME / $CUDA_PATH and $PATH.
-CUDA_ROOTS = ("/usr/local/cuda",)
+from viso_tpu_torch import _cuda
 
-_LIB = None
+SOURCE = _cuda.CSRC / "extract_windows.cu"
 
 
-def find_nvcc():
-    """Path of nvcc, or None when no CUDA toolkit is installed."""
-    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
-        if root and Path(root, "bin", "nvcc").is_file():
-            return str(Path(root, "bin", "nvcc"))
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in CUDA_ROOTS:
-        if Path(root, "bin", "nvcc").is_file():
-            return str(Path(root, "bin", "nvcc"))
-    return None
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"libviso_extract_{digest}.so"
-
-
-def build_library() -> Path:
-    """Compile the kernel library if it is not built yet; return its path.
-
-    Raises RuntimeError, with the compiler's output, when nvcc is missing
-    or the build fails.
-    """
-    path = library_path()
-    if path.is_file():
-        return path
-    nvcc = find_nvcc()
-    if nvcc is None:
-        raise RuntimeError(
-            "cannot build the window-extraction kernel: nvcc not found "
-            "(set CUDA_HOME or put nvcc on PATH)"
-        )
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)
-    return path
+def _bind(lib):
+    lib.viso_extract_windows.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.viso_extract_windows.restype = ctypes.c_int
 
 
 def load_library():
     """Build (if needed) and load the kernel library; cached per process."""
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build_library()))
-        fn = lib.viso_extract_windows
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+    return _cuda.load_library(SOURCE, _bind)
 
 
 def launch(img, base, h: int, w: int, k=None):

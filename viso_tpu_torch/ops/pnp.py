@@ -1,14 +1,24 @@
-"""Robust Gauss-Newton pose refinement on reprojection error (port of
-`viso_tpu/ops/pnp.py`: `reprojection_residual`, `refine_pose`).
+"""Perspective-n-Point: 6-point DLT, MSAC RANSAC and robust Gauss-Newton
+refinement on reprojection error (port of `viso_tpu/ops/pnp.py`).
 
 The JAX package differentiates the residual with `jax.jacfwd` at
 xi = 0; here the same Jacobian is written out: d proj / d p_cam (with
 the depth clamp's zero derivative below 1e-6) times d p_cam / d xi =
 [I | -hat(p_cam)] for a left-perturbed pose.
+
+RANSAC is split in two: `pnp_ransac_from_indices` takes the hypotheses'
+point indices (H, 6), and `pnp_ransac` draws them from a
+`torch.Generator` by the rule of the JAX package's
+`jax.random.categorical` over the mask (six draws per hypothesis, with
+replacement, uniform over the masked points). torch cannot reproduce a
+`jax.random` stream, so tests hand both packages the same indices.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from viso_tpu_torch.backend import robust
@@ -87,3 +97,96 @@ def refine_pose(R0, t0, points_w, x, mask, huber, iters: int = 10):
             accept, torch.clamp(lam * 0.3, min=1e-8), torch.clamp(lam * 10, max=1e4)
         )
     return R, t
+
+
+class PnPResult(NamedTuple):
+    R: torch.Tensor
+    t: torch.Tensor
+    inliers: torch.Tensor
+    num_inliers: torch.Tensor
+
+
+def _dlt_pnp(points_w, x):
+    """6+ point DLT, batched: points_w (..., k, 3), x (..., k, 2) ->
+    (R (..., 3, 3), t (..., 3)), R projected onto SO(3) by SVD and t
+    rescaled by the mean singular value.
+
+    The null vector of A^T A is taken from `eigh` (ascending eigenvalues,
+    as `jnp.linalg.eigh`); its sign is fixed by a vote over the points'
+    depths, so the eigenvector's arbitrary sign does not matter. On CUDA,
+    `eigh` and `svd` check their solver status on the host (a sync).
+    """
+    ones = torch.ones(points_w.shape[:-1] + (1,), dtype=points_w.dtype,
+                      device=points_w.device)
+    Xh = torch.cat([points_w, ones], dim=-1)                       # (..., k, 4)
+    zeros = torch.zeros_like(Xh)
+    row_u = torch.cat([Xh, zeros, -x[..., 0:1] * Xh], dim=-1)
+    row_v = torch.cat([zeros, Xh, -x[..., 1:2] * Xh], dim=-1)
+    A = torch.cat([row_u, row_v], dim=-2)                          # (..., 2k, 12)
+    AtA = A.transpose(-1, -2) @ A
+    _, vecs = torch.linalg.eigh(AtA)
+    p = vecs[..., :, 0].reshape(vecs.shape[:-2] + (3, 4))
+    M = p[..., :, :3]
+    # Sign: points must be in front (positive depth for the majority).
+    depths = torch.einsum("...kc,...c->...k", Xh, p[..., 2, :])
+    sign = torch.where(torch.sum(torch.sign(depths), dim=-1) >= 0, 1.0, -1.0)
+    M = M * sign[..., None, None]
+    tvec = p[..., :, 3] * sign[..., None]
+    U, s, Vt = torch.linalg.svd(M)
+    det = torch.linalg.det(U @ Vt)
+    D = torch.ones(det.shape + (3,), dtype=M.dtype, device=M.device)
+    D = torch.cat([D[..., :2], det[..., None]], dim=-1)
+    R = U @ (D[..., :, None] * Vt)
+    scale = torch.mean(s, dim=-1)
+    t = tvec / torch.clamp(scale, min=1e-12)[..., None]
+    return R, t
+
+
+def draw_hypotheses(generator, mask, num_hypotheses: int = 512):
+    """(H, 6) point indices: six draws per hypothesis, with replacement,
+    uniform over the masked points (the law of `jax.random.categorical`
+    on logits 0 / -inf). With no masked point every index is 0, as the
+    JAX draw gives. No host sync."""
+    n_valid = torch.sum(mask)
+    valid_first = torch.argsort((~mask).to(torch.uint8), stable=True)
+    u = torch.rand((num_hypotheses, 6), generator=generator, device=mask.device)
+    k = torch.clamp(
+        torch.floor(u * n_valid).to(torch.int64), min=0
+    )
+    k = torch.minimum(k, torch.clamp(n_valid - 1, min=0))
+    return valid_first[k]
+
+
+def pnp_ransac_from_indices(idx, points_w, x, mask, threshold: float = 4e-6,
+                            refine_iters: int = 10):
+    """RANSAC PnP over given hypotheses idx (H, 6): world points (N, 3),
+    normalized observations (N, 2), mask (N,). MSAC scoring, robust GN
+    refinement over all masked points, kept only if it does not lose
+    inliers. `threshold` gates squared normalized reprojection error."""
+    Rs, ts = _dlt_pnp(points_w[idx], x[idx])
+    res = reprojection_residual(Rs[:, None], ts[:, None], points_w, x)  # (H, N)
+    res = torch.where(mask[None, :], res, threshold)
+    scores = torch.sum(torch.clamp(res, max=threshold), dim=-1)     # MSAC
+    best = torch.argmin(scores)
+    R0, t0 = Rs[best], ts[best]
+    R, t = refine_pose(
+        R0, t0, points_w, x, mask.to(points_w.dtype),
+        huber=float(np.sqrt(np.float32(threshold))), iters=refine_iters,
+    )
+    final = reprojection_residual(R, t, points_w, x)
+    inl = (final < threshold) & mask
+    # Keep the refined pose only if it did not get worse.
+    inl0 = (res[best] < threshold) & mask
+    better = torch.sum(inl) >= torch.sum(inl0)
+    R = torch.where(better, R, R0)
+    t = torch.where(better, t, t0)
+    inl = torch.where(better, inl, inl0)
+    return PnPResult(R, t, inl, torch.sum(inl))
+
+
+def pnp_ransac(generator, points_w, x, mask, threshold: float = 4e-6,
+               num_hypotheses: int = 512, refine_iters: int = 10):
+    """RANSAC PnP with hypotheses drawn from `generator` (a
+    torch.Generator on the points' device)."""
+    idx = draw_hypotheses(generator, mask, num_hypotheses)
+    return pnp_ransac_from_indices(idx, points_w, x, mask, threshold, refine_iters)

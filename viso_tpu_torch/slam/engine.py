@@ -20,8 +20,10 @@ opportunistic number of frames later (`stats_max_lag`,
 `stats_hard_lag`, `stats_deterministic`, as in the reference). All
 shapes are static across frames.
 
-Not ported yet (see ROADMAP.md): `MonocularVO`, the photometric BA
-backend and distributed BA; the last two raise NotImplementedError.
+`BaseVO._post_keyframe` is the keyframe hook of the SLAM layer
+(`slam/full.py`); here it is a no-op. Not ported yet (see ROADMAP.md):
+`MonocularVO`, the photometric BA backend and distributed BA; the last
+two raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -126,31 +128,37 @@ class FrameResult:
     state: str = "init"
 
 
-class _StatsFetch:
-    """One frame's stats (a small int32 tensor) on its way to the host.
+class HostFetch:
+    """Small tensors on their way to the host (per-frame stats, a
+    keyframe's digest).
 
-    On CUDA: a non-blocking copy into pinned host memory plus a recorded
-    event; `done()` polls the event and `result()` waits on it. On the
-    CPU the copy is immediate.
+    On CUDA: non-blocking copies into pinned host memory plus one event
+    recorded after them; `done()` polls the event and `result()` waits on
+    it (from any thread) before a byte is read. On the CPU the copies are
+    immediate.
     """
 
-    def __init__(self, stats):
-        if stats.device.type == "cuda":
-            self.host = torch.empty(stats.shape, dtype=stats.dtype, pin_memory=True)
-            self.host.copy_(stats, non_blocking=True)
+    def __init__(self, *tensors):
+        self.event = None
+        if tensors and tensors[0].device.type == "cuda":
+            self.host = []
+            for x in tensors:
+                h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                h.copy_(x, non_blocking=True)
+                self.host.append(h)
             self.event = torch.cuda.Event()
             self.event.record()
         else:
-            self.host = stats.clone()
-            self.event = None
+            self.host = [x.clone() for x in tensors]
 
     def done(self) -> bool:
         return self.event is None or self.event.query()
 
     def result(self):
+        """Numpy copies, in the order the tensors were given."""
         if self.event is not None:
             self.event.synchronize()
-        return self.host.numpy()
+        return [h.numpy() for h in self.host]
 
 
 class BaseVO:
@@ -172,6 +180,7 @@ class BaseVO:
             device=self.device,
         )
         self.frame_idx = -1
+        self.last_pyr = None
         self.R = torch.eye(3, dtype=torch.float32, device=self.device)
         self.t = torch.zeros(3, dtype=torch.float32, device=self.device)
         self.prev_R = self.R
@@ -194,6 +203,44 @@ class BaseVO:
                 if s not in used:
                     return s
         return self.kf_order.pop(0)
+
+    def _post_keyframe(self, slot: int, pyr) -> None:
+        """Hook invoked after a keyframe is fully integrated (inserted,
+        window-BA-refined, templates rebuilt). SLAM layers add pose-graph
+        nodes and loop detection here. Default: no-op."""
+
+    def _recent_motion(self):
+        """(speed m/frame, rot rad/frame) medians over the last healthy
+        frames (num_tracked at or above the tracking floor), or
+        (None, None) with too little history. One stacked pull of their
+        poses: call at recovery time, not per frame."""
+        healthy = [
+            (i, r)
+            for i, r in enumerate(self.results)
+            if r.num_tracked >= self.cfg.min_tracked_points
+        ]
+        take = healthy[-12:]
+        if len(take) < 5:
+            return None, None
+        idxs = np.array([i for i, _ in take])
+        R, t = _pull_poses([r for _, r in take])
+        c = -np.einsum("nji,nj->ni", R, t)
+        gaps = np.diff(idxs)
+        steps = np.linalg.norm(np.diff(c, axis=0), axis=-1) / gaps
+        tr = np.einsum("nii->n", np.einsum("nij,nkj->nik", R[1:], R[:-1]))
+        angs = np.arccos(np.clip((tr - 1) / 2, -1, 1)) / gaps
+        sp = float(np.median(steps))
+        rr = float(np.median(angs))
+        return (sp if sp > 1e-6 else None), (rr if rr > 1e-9 else None)
+
+    def _seam_span(self, recovery_frame: int) -> int:
+        """Frames of dead reckoning ending at `recovery_frame`: distance
+        back to the last healthy frame."""
+        upto = min(recovery_frame, len(self.results))
+        for i in range(upto - 1, -1, -1):
+            if self.results[i].num_tracked >= self.cfg.min_tracked_points:
+                return max(1, recovery_frame - i)
+        return max(1, recovery_frame)
 
     def _per_cell(self) -> int:
         cfg = self.cfg
@@ -404,24 +451,24 @@ class BaseVO:
         self.vel_xi = vel_new
         q = self._pending_stats
         if len(q) < max(1, self.cfg.stats_max_lag):
-            q.append((self.frame_idx, _StatsFetch(stats)))
+            q.append((self.frame_idx, HostFetch(stats)))
         consumed = None
         if self.cfg.stats_deterministic:
             # Consume each sample at exactly stats_hard_lag frames of age.
             delta = self.cfg.stats_hard_lag or self.cfg.stats_max_lag
             while q and self.frame_idx - q[0][0] >= delta:
                 f, fetch = q.pop(0)
-                consumed = (f, fetch.result())
+                consumed = (f, fetch.result()[0])
         else:
             while q and q[0][1].done():
                 f, fetch = q.pop(0)
-                consumed = (f, fetch.result())
+                consumed = (f, fetch.result()[0])
         if q and self.frame_idx - q[0][0] >= self._stats_hard_lag():
             f, fetch = q.pop(0)
-            consumed = (f, fetch.result())
+            consumed = (f, fetch.result()[0])
             while q and q[0][1].done():
                 f, fetch = q.pop(0)
-                consumed = (f, fetch.result())
+                consumed = (f, fetch.result()[0])
         if consumed is not None:
             self._stats_frame = consumed[0]
             n_tracked, n_points = (int(v) for v in consumed[1])
@@ -509,7 +556,9 @@ class StereoVO(BaseVO):
             pyr = pyramid.build_pyramid(img_left.to(torch.float32), cfg.pyramid_levels)
             slot = self._insert_stereo_keyframe(pyr, img_left, img_right)
             self._refresh_templates(slot)
+            self._post_keyframe(slot, pyr)
             self.state = "tracking"
+            self.last_pyr = pyr
             self.last_kf_frame = self.frame_idx
             self._n_points_cache = int(self.map.num_points)
             self._record(
@@ -523,6 +572,10 @@ class StereoVO(BaseVO):
         ok_align, refined, n_tracked, pyr = self._track_landmarks(img_left)
 
         forced_recovery = self._update_lost(n_tracked)
+        if forced_recovery:
+            # SLAM loop gating treats this keyframe as a re-anchor after
+            # dead reckoning: its pose and odometry edge are low-confidence.
+            self._last_recovery_frame = self.frame_idx
         is_kf = forced_recovery or self._should_insert_keyframe(n_tracked)
         if is_kf:
             slot = self._insert_stereo_keyframe(
@@ -532,7 +585,10 @@ class StereoVO(BaseVO):
             if cfg.run_ba and len(self.kf_order) >= 2:
                 self._run_window_ba(self.kf_order[:1])
             self._refresh_templates(slot)
+            # Post-BA hook: SLAM layers see the refined pose and map.
+            self._post_keyframe(slot, pyr)
 
+        self.last_pyr = pyr
         self._record(
             num_tracked=n_tracked,
             num_landmarks=getattr(self, "_n_points_cache", 0),
