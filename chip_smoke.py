@@ -10,22 +10,32 @@ raises and exits non-zero:
   2. the build: compiles every kernel source in viso_tpu_torch/csrc/ (one
      nvcc per source, all started together; or reuses the builds keyed by
      their source hashes);
-  3. K1, the window-extraction kernel, against its plain PyTorch version
-     at every shape the headline's stereo VO path and the SLAM cell give
-     it (the 34x34 descriptor windows and the SLAM cell's pyramid levels
-     included), plus edge cases: torch.equal (a pure copy is bit-exact),
-     kernel and plain times from CUDA events;
+  3. K1, the window-extraction kernel, at every shape the headline's
+     stereo VO path and the SLAM cell give it (the 34x34 descriptor
+     windows and the SLAM cell's pyramid levels included), plus edge,
+     NaN and +-inf cases: the explicit-origin kernel and the entry the
+     main path calls (centred, two-source for align, rect for the stereo
+     strip) each torch.equal to its plain version (a pure copy is
+     bit-exact), a replay of a captured CUDA graph of the entry equal to
+     its eager call; then the entry's five timings (`bench_extract`:
+     device_ms from a CUDA graph replay, host_ms on the host clock,
+     floor_ms of an empty kernel, bound_ms from the bytes, library_ms of
+     one torch.take), its plain version's device time and its eager
+     entry time from CUDA events;
   4. StereoVO at the bench-headline configuration (376x1240, KITTI
      intrinsics, 44-frame rng-42 corridor): an instrumented run for
-     per-program times and the synchronising-call count, then a clean run
-     for frames/s over 32 frames after a 12-frame warmup. K1's launch
-     counter must rise during the run, and the ATE against ground truth
-     (no scale alignment) must stay below 0.05 m;
+     per-program times and the synchronising-call count, one more tracked
+     frame under torch.profiler (no copy of the keyframe stack), then a
+     clean run for frames/s over 32 frames after a 12-frame warmup. K1's
+     launch counter must rise during the run, and the ATE against ground
+     truth (no scale alignment) must stay below 0.05 m;
   5. K2, the row-aligned extraction kernel, on its main path: the
      extraction micro-benchmark (`python -m
      viso_tpu_torch.tools.bench_extract`), which holds K2 against its
      plain version at all 12 of its shapes (torch.equal on tiles and
-     origins) and against K1 through its value oracle (< 1e-3);
+     origins, the same at every K), a graph replay against the eager
+     call, and K1 through its value oracle (< 1e-3), with the five
+     timings at each shape and their spread over K;
   6. StereoSLAM at the reference's 500-frame loop configuration
      (`bench.py:604-692`: 184x616, half-KITTI intrinsics, the room orbit
      over two laps, frames quantised to uint8 as the bench's PNGs are):
@@ -34,8 +44,9 @@ raises and exits non-zero:
      (no scale alignment) below 0.15 m, and K1 launched during the run;
   7. one JSON line with the kernel records (`launches`: the kernel's
      launches summed over the main paths it is on, each counted from 0
-     just before its path and read just after), then the last line
-     {"ok": true, "device": {...}}.
+     just before its path and read just after; the times: K1 summed over
+     a tracked frame's 6 calls, K2 over the tool's 12), then the last
+     line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or viso_tpu. Needs one CUDA device.
 """
@@ -44,7 +55,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 import warnings
@@ -64,67 +74,41 @@ SLAM_H, SLAM_W = 184, 616
 SLAM_FRAMES, SLAM_WARMUP = 500, 60
 SLAM_ATE_LIMIT_M = 0.15     # ~2x the JAX package's 0.0684 m on the v5e (BENCH_r05)
 
-# (name, image shape, window (h, w), N, indexed) -- every call the
-# headline's stereo VO path and the SLAM cell make, with its caller.
-MAIN_PATH_CASES = [
-    # direct.py build_level_template (templates, every keyframe): win 10
-    ("templates L0 win10", (H, W), (10, 10), 1024, False),
-    ("templates L1 win10", (H // 2, W // 2), (10, 10), 1024, False),
-    ("templates L2 win10", (H // 4, W // 4), (10, 10), 256, False),
-    ("templates L3 win10", (H // 8, W // 8), (10, 10), 256, False),
-    # direct.py _level_pass_cached (track, every frame): win 16 / 24
-    ("track direct L0 win16", (H, W), (16, 16), 1024, False),
-    ("track direct L1 win24", (H // 2, W // 2), (24, 24), 1024, False),
-    ("track direct L2 win24", (H // 4, W // 4), (24, 24), 256, False),
-    ("track direct L3 win24", (H // 8, W // 8), (24, 24), 256, False),
-    # align.py _align_level (track, every frame): indexed over K+1 = 9
-    ("track align L1 idx win16", (9, H // 2, W // 2), (16, 16), 2048, True),
-    ("track align L0 idx win16", (9, H, W), (16, 16), 2048, True),
-    # stereo.py match (stereo_kf, every keyframe)
-    ("stereo left win12", (H, W), (12, 12), 504, False),
-    ("stereo right rect 12x140", (H, W), (12, 140), 504, False),
-    # descriptors.py compute (the SLAM keyframe digest): 34x34 windows,
-    # N = LoopParams.num_features, at the SLAM cell's and the headline's size
-    ("descriptors 184x616 win34", (SLAM_H, SLAM_W), (34, 34), 256, False),
-    ("descriptors 376x1240 win34", (H, W), (34, 34), 256, False),
-    # The SLAM cell's VO calls (184x616, 256 features, 1024 landmarks,
-    # disparity 96). Every level is at most 200 px high, so direct.py's
-    # track windows are 24 px, clipped to the 23 px of level 3.
-    ("slam templates L0 win10", (SLAM_H, SLAM_W), (10, 10), 1024, False),
-    ("slam templates L1 win10", (SLAM_H // 2, SLAM_W // 2), (10, 10), 1024, False),
-    ("slam templates L2 win10", (SLAM_H // 4, SLAM_W // 4), (10, 10), 256, False),
-    ("slam templates L3 win10", (SLAM_H // 8, SLAM_W // 8), (10, 10), 256, False),
-    ("slam track direct L0 win24", (SLAM_H, SLAM_W), (24, 24), 1024, False),
-    ("slam track direct L1 win24", (SLAM_H // 2, SLAM_W // 2), (24, 24), 1024, False),
-    ("slam track direct L2 win24", (SLAM_H // 4, SLAM_W // 4), (24, 24), 256, False),
-    ("slam track direct L3 win23", (SLAM_H // 8, SLAM_W // 8), (23, 23), 256, False),
-    ("slam track align L1 idx win16", (9, SLAM_H // 2, SLAM_W // 2), (16, 16), 2048, True),
-    ("slam track align L0 idx win16", (9, SLAM_H, SLAM_W), (16, 16), 2048, True),
-    ("slam stereo left win12", (SLAM_H, SLAM_W), (12, 12), 256, False),
-    ("slam stereo right rect 12x108", (SLAM_H, SLAM_W), (12, 108), 256, False),
-]
-TRACK_CASES = [c[0] for c in MAIN_PATH_CASES if c[0].startswith("track")]
+# The timings summed over a tracked frame's calls (K1) or the tool's sweep (K2).
+FRAME_KEYS = ("device_ms", "host_ms", "floor_ms", "bound_ms", "library_ms", "plain_ms",
+              "entry_ms")
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def kernel_cases(torch, extract, dev, card):
-    """Phase 3. Returns (per-case results, max abs error)."""
-    from viso_tpu_torch.tools.bench_extract import cuda_ms
+def kernel_cases(torch, extract, cases, dev, card):
+    """Phase 3. Every case: the kernel at explicit origins (`launch`) and
+    the entry point the main path calls (centred, two-source or rect), each
+    bit-equal to its plain version, a graph replay of the entry equal to
+    its eager call; the entry's five timings (device, host, launch floor,
+    bound, library yardstick) and the explicit-origin kernel's device and
+    host time. Returns (per-case results, max abs error)."""
+    from viso_tpu_torch.tools import bench_extract as bx
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    lib = extract.load_library()
     results = {}
     max_err = 0.0
+    inf, nan = float("inf"), float("nan")
+    nonfinite_centres = torch.tensor(
+        [[nan, 5.0], [5.0, nan], [inf, 5.0], [-inf, 5.0], [5.0, inf], [5.0, -inf],
+         [nan, nan], [inf, -inf]], device=dev)
 
-    def check(name, shape, hw, n, indexed, edge=False):
+    def same(got, ref, what):
         nonlocal max_err
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for a, b in zip(got, ref):
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"kernel != plain for {what}")
+            if a.numel():
+                max_err = max(max_err, float((a.double() - b.double()).abs().max()))
+
+    def check(name, shape, hw, n, indexed, edge=False, nonfinite=False):
         h, w = hw
         img = torch.rand(shape, generator=gen, device=dev) * 255.0
         Hh, Ww = shape[-2], shape[-1]
@@ -139,6 +123,8 @@ def kernel_cases(torch, extract, dev, card):
                 device=dev,
             )
             centers[: min(n, len(border))] = border[: min(n, len(border))]
+        if nonfinite:
+            centers[: min(n, 8)] = nonfinite_centres[: min(n, 8)]
         k = None
         if indexed:
             k = torch.randint(0, shape[0], (n,), generator=gen, device=dev, dtype=torch.int32)
@@ -153,26 +139,58 @@ def kernel_cases(torch, extract, dev, card):
                  torch.clamp(torch.floor(centers[:, 1]).to(torch.int32) - 6, 0, Hh - h)], -1)
             if edge:
                 base[:2] = torch.tensor([[-7, -3], [Ww, Hh]], dtype=torch.int32, device=dev)
-        got = extract.launch(img, base, h, w, k=k)
-        torch.cuda.synchronize()
-        ref = extract.extract_plain(img, base, h, w, k=k)
-        torch.cuda.synchronize()
-        if got.shape != ref.shape or not torch.equal(got, ref):
-            raise AssertionError(f"kernel != plain for {name}")
-        err = float((got - ref).abs().max()) if got.numel() else 0.0
-        max_err = max(max_err, err)
-        ms = cuda_ms(lambda: extract.launch(img, base, h, w, k=k))
-        plain_ms = cuda_ms(lambda: extract.extract_plain(img, base, h, w, k=k))
-        results[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
-        print(f"K1 {name}: shape {tuple(shape)} window {h}x{w} N={n} equal=True "
-              f"max_abs_err={err} kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} [{card}]")
+        launch = lambda: extract.launch(img, base, h, w, k=k)  # noqa: E731
+        same(launch(), extract.extract_plain(img, base, h, w, k=k), name)
+        # The entry point the main path calls, its plain version, and the
+        # source and flat index of its copy for the library yardstick.
+        if h != w:
+            entry = lambda: extract.extract_rects_fast(img, base, h, w)  # noqa: E731
+            plain = lambda: (extract.extract_plain(img, base, h, w), base)  # noqa: E731
+            src, idx = img, bx.flat_index(img.shape, base, h, w)
+        elif indexed:
+            # align.py's call: half the windows from the keyframe stack
+            # (all but the last image), half from the current image.
+            m = n // 2
+            stack, cur = img[:-1], img[-1]
+            k_ref = k[:m] if edge else torch.clamp(k[:m], 0, stack.shape[0] - 1)
+            c_ref, c_cur = centers[:m], centers[m:2 * m]
+            entry = lambda: extract.extract_windows_two_source(  # noqa: E731
+                stack, k_ref, c_ref, cur, c_cur, w)
+            plain = lambda: extract.two_source_plain(  # noqa: E731
+                stack, k_ref, c_ref, cur, c_cur, w)
+            # The yardstick indexes the (9, H, W) stack made beforehand.
+            k_all = torch.cat([torch.clamp(k_ref, 0, stack.shape[0] - 1),
+                               torch.full_like(k_ref, stack.shape[0])])
+            src, idx = img, bx.flat_index(img.shape, plain()[1], w, w, k=k_all)
+        else:
+            entry = lambda: extract.extract_windows_fast(img, centers, w)  # noqa: E731
+            plain = lambda: extract.centered_plain(img, centers, w)  # noqa: E731
+            src, idx = img, bx.flat_index(img.shape, base, h, w)
+        same(entry(), plain(), name + " entry")
+        if edge or nonfinite:
+            print(f"K1 {name}: shape {tuple(shape)} window {h}x{w} N={n} equal=True [{card}]")
+            return
+        if not bx.graph_matches_eager(entry):
+            raise AssertionError(f"graph replay != eager call for {name}")
+        t = bx.times(entry, lib, n, h, w, src, idx)
+        t.update(plain_ms=bx.device_ms(plain), entry_ms=bx.cuda_ms(entry),
+                 launch_device_ms=bx.device_ms(launch), launch_host_ms=bx.host_ms(launch))
+        results[name] = t
+        print(f"K1 {name}: shape {tuple(shape)} window {h}x{w} N={n} equal=True graph=True "
+              f"{bx.times_line(t)} plain_ms={t['plain_ms']:.6f} entry_ms={t['entry_ms']:.6f} "
+              f"launch_device_ms={t['launch_device_ms']:.6f} "
+              f"launch_host_ms={t['launch_host_ms']:.6f} [{card}]")
 
-    for name, shape, hw, n, indexed in MAIN_PATH_CASES:
+    for name, shape, hw, n, indexed in cases:
         check(name, shape, hw, n, indexed)
     check("edge square borders", (H, W), (16, 16), 64, False, edge=True)
     check("edge N=1", (H // 8, W // 8), (24, 24), 1, False, edge=True)
     check("edge indexed k at ends", (9, H, W), (16, 16), 64, True, edge=True)
     check("edge rect borders", (H, W), (12, 140), 16, False, edge=True)
+    check("edge centred NaN/inf", (H, W), (10, 10), 64, False, nonfinite=True)
+    check("edge two-source NaN/inf", (9, H // 2, W // 2), (16, 16), 64, True, edge=True,
+          nonfinite=True)
+    check("edge descriptors NaN/inf", (SLAM_H, SLAM_W), (34, 34), 16, False, nonfinite=True)
     return results, max_err
 
 
@@ -223,6 +241,27 @@ def instrument(vo, torch, times):
         setattr(vo, attr, timed)
 
 
+def profile_frame(torch, vo, frame, stack_bytes):
+    """One tracked frame under torch.profiler: (device kernel ms, kernel
+    count, K1 kernels, the bytes of every aten::cat that allocates at
+    least `stack_bytes` -- a copy of the keyframe stack)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 profile_memory=True) as prof:
+        vo.process(*frame)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.device_time for e in kernels) / 1e3
+    k1 = sum(1 for e in kernels if "extract_windows_kernel" in e.name)
+    copies = [e.cpu_memory_usage + e.device_memory_usage for e in events
+              if e.name == "aten::cat"
+              and e.cpu_memory_usage + e.device_memory_usage >= stack_bytes]
+    return device_ms, len(kernels), k1, copies
+
+
 def ate_of(vo, metrics, Rs, ts):
     R_est, t_est = vo.trajectory()
     if len(R_est) != N_FRAMES or not (np.isfinite(R_est).all() and np.isfinite(t_est).all()):
@@ -245,18 +284,24 @@ def k2_phase(torch, extract, extract_aligned, card):
     extract_aligned.launch.launches = 0
     records = bench_extract.run(torch.device("cuda", 0))
     launches = extract_aligned.launch.launches
-    bench_extract.report(records)
-    bad = [r for r in records if not (r["equal"] and r["oracle_ok"])]
-    ms = sum(r["k2_ms"] for r in records)
-    plain_ms = sum(r["k2_plain_ms"] for r in records)
-    print(f"K2 one sweep ({len(records)} calls): kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} "
-          f"[{card}]")
+    bench_extract.report(records, card)
+    bad = [r for r in records if not (r["equal"] and r["oracle_ok"] and r["graph_ok"])]
+    for r in records:
+        r.update(plain_ms=r["k2_plain_ms"], entry_ms=r["k2_ms"])
+    sweep = {key: sum(r[key] for r in records) for key in FRAME_KEYS}
+    print(f"K2 one sweep ({len(records)} calls): "
+          + " ".join(f"{key}={sweep[key]:.6f}" for key in FRAME_KEYS) + f" [{card}]")
+    for n in bench_extract.NS:
+        for win in bench_extract.WINS:
+            dms = [r["device_ms"] for r in records if r["N"] == n and r["win"] == win]
+            print(f"K2 N={n} win={win}: device_ms over K max/min {max(dms) / min(dms):.3f} "
+                  f"[{card}]")
     print(f"K2 launches during the tool run: {launches} (K1: {extract.launch.launches})")
     if len(records) != 12 or bad or launches <= 0:
         raise AssertionError(f"bench_extract: {len(records)} shapes, failing {bad}, "
                              f"K2 launches {launches}")
     return dict(launches=launches, max_abs_err=max(r["max_abs_err"] for r in records),
-                ms=ms, plain_ms=plain_ms)
+                **sweep)
 
 
 def slam_phase(torch, extract, extract_aligned, synthetic, camera, metrics, dev, card):
@@ -354,13 +399,14 @@ def main() -> int:
     from viso_tpu_torch.data import synthetic
     from viso_tpu_torch.geometry import camera, extract, extract_aligned
     from viso_tpu_torch.slam.engine import StereoVO, VOConfig
+    from viso_tpu_torch.tools import bench_extract, bench_k1
     from viso_tpu_torch.utils import metrics
     t_start = time.perf_counter()
 
     # Phase 1: the card.
     if torch.cuda.device_count() != 1:
         raise AssertionError(f"expected one visible card, got {torch.cuda.device_count()}")
-    card = card_line()
+    card = bench_extract.card_line()
     dev = torch.device("cuda", 0)
     print(card)   # exactly as nvidia-smi gives it: name, power limit
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -376,11 +422,10 @@ def main() -> int:
 
     # Phase 3: K1 against its plain version.
     t0 = time.perf_counter()
-    cases, max_err = kernel_cases(torch, extract, dev, card)
-    frame_ms = sum(cases[n]["ms"] for n in TRACK_CASES)
-    frame_plain_ms = sum(cases[n]["plain_ms"] for n in TRACK_CASES)
-    print(f"K1 per tracked frame (6 calls): kernel_ms={frame_ms:.6f} "
-          f"plain_ms={frame_plain_ms:.6f} [{card}]")
+    cases, max_err = kernel_cases(torch, extract, bench_k1.MAIN_PATH_CASES, dev, card)
+    k1_frame = {key: sum(cases[n][key] for n in bench_k1.TRACK_CASES) for key in FRAME_KEYS}
+    print("K1 per tracked frame (6 calls): "
+          + " ".join(f"{key}={k1_frame[key]:.6f}" for key in FRAME_KEYS) + f" [{card}]")
     print(f"phase 3 wall {time.perf_counter() - t0:.1f} s")
 
     # Phase 4: StereoVO on the headline sequence.
@@ -411,7 +456,6 @@ def main() -> int:
     torch.cuda.synchronize()
     n_sync = sum(1 for w in caught if "synchroniz" in str(w.message).lower())
     ate_a = ate_of(vo, metrics, Rs, ts)
-    vo.close()
     prog_ms = {
         name: sum(s.elapsed_time(e) for s, e in v) / len(v)
         for name, v in times.items() if v
@@ -425,7 +469,18 @@ def main() -> int:
     print(f"synchronising calls over {len(timed)} timed frames "
           f"(set_sync_debug_mode warn): {n_sync} [{card}]")
 
-    # 4b: the main path, clean: counts reset just before, read just after.
+    # 4b: one more tracked frame under torch.profiler (the last frame
+    # again): no copy of the keyframe stack (8 images at level 1 or more).
+    stack_bytes = 8 * (H // 2) * (W // 2) * 4
+    dev_ms, n_kernels, n_k1, copies = profile_frame(torch, vo, timed[-1], stack_bytes)
+    vo.close()
+    print(f"profiled tracked frame: {n_kernels} kernels, {dev_ms:.3f} ms device time, "
+          f"{n_k1} K1 launches, {len(copies)} copies of the keyframe stack [{card}]")
+    if copies or n_k1 <= 0:
+        raise AssertionError(f"tracked frame copies the keyframe stack {copies} "
+                             f"or never launches K1 ({n_k1})")
+
+    # 4c: the main path, clean: counts reset just before, read just after.
     extract.launch.launches = 0
     extract_aligned.launch.launches = 0
     vo = StereoVO(cfg, device=dev)
@@ -476,27 +531,23 @@ def main() -> int:
 
     # Phase 7: results.
     print(f"total wall {time.perf_counter() - t_start:.1f} s")
+    # ms, plain_ms, bound_ms, library_ms: device times (CUDA graph replay),
+    # K1 summed over a tracked frame's 6 calls, K2 over the tool's 12 calls.
+    def record(name, source, replaces, launches, err, t):
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err,
+            "ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"], "host_ms": t["host_ms"], "floor_ms": t["floor_ms"],
+            "entry_ms": t["entry_ms"],
+        }
+
     print(json.dumps({"kernels": [
-        {
-            "name": "extract_windows",
-            "route": "cuda",
-            "source": "viso_tpu_torch/csrc/extract_windows.cu",
-            "replaces": "viso_tpu/geometry/extract_pallas.py:64",
-            "launches": launches + slam_k1,
-            "max_abs_err": max_err,
-            "ms": frame_ms,
-            "plain_ms": frame_plain_ms,
-        },
-        {
-            "name": "extract_aligned",
-            "route": "cuda",
-            "source": "viso_tpu_torch/csrc/extract_aligned.cu",
-            "replaces": "tools/bench_extract.py:37",
-            "launches": k2["launches"],
-            "max_abs_err": k2["max_abs_err"],
-            "ms": k2["ms"],
-            "plain_ms": k2["plain_ms"],
-        },
+        record("extract_windows", "viso_tpu_torch/csrc/extract_windows.cu",
+               "viso_tpu/geometry/extract_pallas.py:64", launches + slam_k1, max_err, k1_frame),
+        record("extract_aligned", "viso_tpu_torch/csrc/extract_aligned.cu",
+               "tools/bench_extract.py:37", k2["launches"], k2["max_abs_err"], k2),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

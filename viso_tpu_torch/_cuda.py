@@ -111,12 +111,29 @@ def load_library(source, bind):
     """Build (if needed) and load one kernel library, cached per process.
 
     `bind(lib)` sets the argtypes and restype of the library's C entry
-    points once, when it is first loaded."""
+    points once, when it is first loaded. Every library also exports
+    `int viso_empty(void* stream)`, an empty kernel (the launch floor),
+    bound here. A loaded library is returned without taking the lock."""
     source = Path(source)
+    lib = _LIBS.get(source)
+    if lib is not None:
+        return lib
     with _LOCK:
         lib = _LIBS.get(source)
         if lib is None:
             lib = ctypes.CDLL(str(build_library(source)))
             bind(lib)
+            lib.viso_empty.argtypes = [ctypes.c_void_p]
+            lib.viso_empty.restype = ctypes.c_int
             _LIBS[source] = lib
     return lib
+
+
+def launch_empty(lib):
+    """Launch the library's empty kernel on the current CUDA stream; raises
+    if the launch is refused."""
+    import torch
+
+    err = lib.viso_empty(torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")

@@ -10,16 +10,17 @@ their origins, with exactly the tool's origin rule:
 
 The 8 extra rows keep the window covered at any alignment; samplers that
 take the origin explicitly (`sampling.sample_patch_grid`) are agnostic to
-the over-copy. K is the number of windows one thread block copies (one
-grid step of the TPU kernel), so N must be a multiple of K: the TPU
-kernel never writes the windows past (N // K) * K, and the tool skips
-such K.
+the over-copy. K was the TPU kernel's grid step (K windows per step), and
+the TPU kernel never wrote the windows past (N // K) * K, so N must be a
+multiple of K here too; but K no longer shapes the launch, so the tiles,
+the origins and the time are the same for every K.
 
 Dispatch is by the device of the image: CPU tensors take the plain
 version (`extract_plain`, advanced indexing); CUDA tensors launch the
-kernel in `viso_tpu_torch/csrc/extract_aligned.cu` or raise. The copy is
-exact, so kernel and plain version are bit-equal. `launch.launches`
-counts kernel launches.
+kernel in `viso_tpu_torch/csrc/extract_aligned.cu` (loads through
+Hopper's Tensor Memory Accelerator) or raise, also where TMA cannot take
+the image (`tma_rejects`). The copy is exact, so kernel and plain version
+are bit-equal. `launch.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -33,15 +34,17 @@ from viso_tpu_torch.geometry import extract
 
 SOURCE = _cuda.CSRC / "extract_aligned.cu"
 ROW_PAD = 8
+TMA_BOX_MAX = 256              # TMA's largest box side, in elements
+STAGE_BYTES_MAX = 48 * 1024 - 128 - 8 * 512   # one ring stage at most (the .cu)
+_ERRORS = {-1: "cuTensorMapEncodeTiled not found through the CUDA runtime",
+           -2: "cuTensorMapEncodeTiled refused the tensor map",
+           -3: "a box does not fit one shared-memory stage"}
 
 
 def _bind(lib):
-    lib.viso_extract_aligned.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.viso_extract_aligned.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.viso_extract_aligned.argtypes = [p, i, i, p, i, i, p, p, p]
+    lib.viso_extract_aligned.restype = i
 
 
 def load_library():
@@ -65,6 +68,26 @@ def _check(img, centers, win: int, K: int):
             f"N = {N} is not a multiple of K = {K}: the windows past "
             f"(N // K) * K would never be written"
         )
+
+
+def tma_rejects(data_ptr: int, W: int, win: int):
+    """Why the TMA copy cannot take a float32 image (H, W) at address
+    `data_ptr` with (win + 8, win) tiles, or None when it can. TMA needs a
+    16-byte aligned image, row pitch and first box column, so each load
+    takes a box of win + 4 columns at x0 & ~3; its rows must be a multiple
+    of 16 bytes, its sides at most 256, and it must fit one stage."""
+    rows, cols = win + ROW_PAD, win + 4
+    if data_ptr % 16:
+        return f"image address {data_ptr:#x} is not 16-byte aligned"
+    if (W * 4) % 16:
+        return f"row pitch W * 4 = {W * 4} bytes is not a multiple of 16"
+    if (cols * 4) % 16:
+        return f"box row (win + 4) * 4 = {cols * 4} bytes is not a multiple of 16"
+    if max(rows, cols) > TMA_BOX_MAX:
+        return f"box of {rows} x {cols} exceeds TMA's box side of {TMA_BOX_MAX}"
+    if rows * cols * 4 > STAGE_BYTES_MAX:
+        return f"box of {rows * cols * 4} bytes exceeds a stage of {STAGE_BYTES_MAX}"
+    return None
 
 
 def aligned_base(img_hw, centers, win: int):
@@ -98,20 +121,20 @@ def launch(img, centers, win: int, K: int):
         raise ValueError("centers must be contiguous float32 on the image's device")
     _check(img, centers, win, K)
     H, W = img.shape
+    why = tma_rejects(img.data_ptr(), W, win)
+    if why is not None:
+        raise ValueError(f"TMA cannot take this image: {why}")
     N = centers.shape[0]
-    if 2 * K * 4 > 48 * 1024:
-        raise ValueError(f"K = {K} windows do not fit one block's origin table")
     out = torch.empty((N, win + ROW_PAD, win), dtype=torch.float32, device=img.device)
     base = torch.empty((N, 2), dtype=torch.int32, device=img.device)
-    lib = load_library()
     with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.viso_extract_aligned(
-            img.data_ptr(), H, W, centers.data_ptr(), N, win, K,
-            out.data_ptr(), base.data_ptr(), stream,
+        err = load_library().viso_extract_aligned(
+            img.data_ptr(), H, W, centers.data_ptr(), N, win,
+            out.data_ptr(), base.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"extract_aligned kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"extract_aligned kernel launch failed: "
+                           f"{_ERRORS.get(err, f'CUDA error {err}')}")
     launch.launches += 1
     return out, base
 
@@ -120,8 +143,8 @@ launch.launches = 0
 
 
 def extract_windows_aligned(img, centers, win: int, K: int = 128):
-    """(tiles (N, win + 8, win) f32, base (N, 2) int32), K windows per
-    thread block. CPU tensors take the plain version; CUDA tensors the
+    """(tiles (N, win + 8, win) f32, base (N, 2) int32); N must be a
+    multiple of K. CPU tensors take the plain version; CUDA tensors the
     kernel."""
     if img.device.type == "cpu":
         return extract_plain(img, centers, win, K)

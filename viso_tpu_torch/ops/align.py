@@ -55,16 +55,11 @@ def _align_level(imgs_ref, k_idx, uv_ref, img_cur, flow0, params: AlignParams):
     """
     half = params.half_patch
     win = min(2 * half + 8, imgs_ref.shape[1], imgs_ref.shape[2], *img_cur.shape)
-    # Template and current-frame windows in ONE indexed extraction: the
-    # current image rides as one more entry of the stacked image set.
+    # Template and current-frame windows in ONE two-source extraction (the
+    # keyframe stack, then the current image), with no copy of the images.
     n = uv_ref.shape[0]
-    K = imgs_ref.shape[0]
-    imgs_all = torch.cat([imgs_ref, img_cur[None]], dim=0)
-    k_all = torch.cat(
-        [k_idx.to(torch.int32), torch.full((n,), K, dtype=torch.int32, device=k_idx.device)]
-    )
-    win2, base2 = extract.extract_windows_indexed_fast(
-        imgs_all, k_all, torch.cat([uv_ref, uv_ref + flow0]), win
+    win2, base2 = extract.extract_windows_two_source(
+        imgs_ref, k_idx, uv_ref, img_cur, uv_ref + flow0, win
     )
     ref_win, cur_win = win2[:n], win2[n:]
     ref_base, cur_base = base2[:n], base2[n:]
