@@ -11,11 +11,14 @@ raises and exits non-zero:
      nvcc per source, all started together; or reuses the builds keyed by
      their source hashes);
   3. K1, the window-extraction kernel, at every shape the headline's
-     stereo VO path and the SLAM cell give it (the 34x34 descriptor
-     windows and the SLAM cell's pyramid levels included), plus edge,
-     NaN and +-inf cases: the explicit-origin kernel and the entry the
-     main path calls (centred, two-source for align, rect for the stereo
-     strip) each torch.equal to its plain version (a pure copy is
+     stereo VO path, the SLAM cell, the mono cell and phase 8's CLI runs
+     give it (`tools/bench_k1.MAIN_PATH_CASES`; the 34x34
+     descriptor windows, LK's two-source calls at each level and the
+     photometric BA's 8,192 windows of 16x16 from the level-1 keyframe
+     stack included), plus edge, NaN and +-inf cases: the explicit-origin
+     kernel and the entry the main path calls (centred, two-source for
+     align and LK, indexed over a stack for photometric BA, rect for the
+     stereo strip) each torch.equal to its plain version (a pure copy is
      bit-exact), a replay of a captured CUDA graph of the entry equal to
      its eager call; then the entry's five timings (`bench_extract`:
      device_ms from a CUDA graph replay, host_ms on the host clock,
@@ -42,7 +45,23 @@ raises and exits non-zero:
      60 warmup frames, frames 60-499 timed on the host clock, then
      join(). 500 finite poses, no hook errors, at least one loop, ATE
      (no scale alignment) below 0.15 m, and K1 launched during the run;
-  7. one JSON line with the kernel records (`launches`: the kernel's
+  7. MonocularVO at the reference's mono configuration (`bench.py:
+     329-449`: 184x616, half-KITTI intrinsics, 256 features, the rng-5
+     corridor over 500 frames, uint8 frames, BA backend "auto", so
+     photometric): frames/s over frames 60-499 on the host clock, the
+     scale-aligned ATE, scale drift and end rotation error, keyframes,
+     re-inits, the first tracking frame, synchronising calls, K1 launches
+     by call site (track, LK, photometric BA, templates), then one more
+     keyframe frame under torch.profiler (its kernels and the device's
+     busy share). It must reach tracking with a finite ATE below 4.0 m
+     (the spread over RANSAC seeds sets the band: MONO_ATE_LIMIT_M), and
+     K1 must launch from both LK and photometric BA;
+  8. the CLI on the card: `viso_tpu_torch.run.main` on its synthetic
+     sequence, 30 frames in each of --mode stereo, slam (a checkpoint
+     every 8 frames) and mono, each summary within tests/test_run_cli.py's
+     bounds (ATE below 0.2, 0.3 and 2.0 m) with its trajectory, per-frame
+     log (one line per frame), summary (and slam.npz) written;
+  9. one JSON line with the kernel records (`launches`: the kernel's
      launches summed over the main paths it is on, each counted from 0
      just before its path and read just after; the times: K1 summed over
      a tracked frame's 6 calls, K2 over the tool's 12), then the last
@@ -53,6 +72,9 @@ Imports nothing of JAX or viso_tpu. Needs one CUDA device.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import io
 import json
 import os
 import sys
@@ -73,6 +95,22 @@ ATE_LIMIT_M = 0.05
 SLAM_H, SLAM_W = 184, 616
 SLAM_FRAMES, SLAM_WARMUP = 500, 60
 SLAM_ATE_LIMIT_M = 0.15     # ~2x the JAX package's 0.0684 m on the v5e (BENCH_r05)
+
+# The reference's monocular VO cell (bench.py:329-449): 500 frames of the
+# rng-5 corridor at 184x616, frames 60-499 timed.
+MONO_FRAMES, MONO_WARMUP = 500, 60
+# The cell's ATE depends on its RANSAC seed (tools/mono_cell.py, PERF.md):
+# 0.85-2.99 m on the H100 over the seeds whose run re-initializes once,
+# 8.3-9.5 m over those that never do (the scale drifts away unchecked).
+# The band lies between the two; seed 0, run here, reads 1.48 m.
+MONO_ATE_LIMIT_M = 4.0
+# The engine programs that call K1, for its launch counts by call site.
+K1_SITES = {"_track": "track", "_templates_program": "templates",
+            "_mono_kf_program": "lk", "_try_initialize": "lk", "_ba_program": "photo-BA",
+            "_stereo_kf_program": "stereo_kf"}
+CLI_FRAMES = 30
+# tests/test_run_cli.py's bounds on the summary's ATE.
+CLI_ATE_LIMITS = {"stereo": 0.2, "slam": 0.3, "mono": 2.0}
 
 # The timings summed over a tracked frame's calls (K1) or the tool's sweep (K2).
 FRAME_KEYS = ("device_ms", "host_ms", "floor_ms", "bound_ms", "library_ms", "plain_ms",
@@ -108,7 +146,7 @@ def kernel_cases(torch, extract, cases, dev, card):
             if a.numel():
                 max_err = max(max_err, float((a.double() - b.double()).abs().max()))
 
-    def check(name, shape, hw, n, indexed, edge=False, nonfinite=False):
+    def check(name, shape, hw, n, source, edge=False, nonfinite=False):
         h, w = hw
         img = torch.rand(shape, generator=gen, device=dev) * 255.0
         Hh, Ww = shape[-2], shape[-1]
@@ -126,7 +164,7 @@ def kernel_cases(torch, extract, cases, dev, card):
         if nonfinite:
             centers[: min(n, 8)] = nonfinite_centres[: min(n, 8)]
         k = None
-        if indexed:
+        if source:
             k = torch.randint(0, shape[0], (n,), generator=gen, device=dev, dtype=torch.int32)
             if edge:
                 k[: min(n, 4)] = torch.tensor([0, shape[0] - 1, -1, shape[0] + 3],
@@ -147,8 +185,13 @@ def kernel_cases(torch, extract, cases, dev, card):
             entry = lambda: extract.extract_rects_fast(img, base, h, w)  # noqa: E731
             plain = lambda: (extract.extract_plain(img, base, h, w), base)  # noqa: E731
             src, idx = img, bx.flat_index(img.shape, base, h, w)
-        elif indexed:
-            # align.py's call: half the windows from the keyframe stack
+        elif source == "stack":
+            # ba_photometric.py's call: every window from the stack.
+            entry = lambda: extract.extract_windows_indexed_fast(img, k, centers, w)  # noqa: E731
+            plain = lambda: extract.centered_plain(img, centers, w, k=k)  # noqa: E731
+            src, idx = img, bx.flat_index(img.shape, plain()[1], w, w, k=k)
+        elif source:
+            # align.py's and lk.py's call: half the windows from the stack
             # (all but the last image), half from the current image.
             m = n // 2
             stack, cur = img[:-1], img[-1]
@@ -181,14 +224,16 @@ def kernel_cases(torch, extract, cases, dev, card):
               f"launch_device_ms={t['launch_device_ms']:.6f} "
               f"launch_host_ms={t['launch_host_ms']:.6f} [{card}]")
 
-    for name, shape, hw, n, indexed in cases:
-        check(name, shape, hw, n, indexed)
+    for name, shape, hw, n, source in cases:
+        check(name, shape, hw, n, source)
     check("edge square borders", (H, W), (16, 16), 64, False, edge=True)
     check("edge N=1", (H // 8, W // 8), (24, 24), 1, False, edge=True)
-    check("edge indexed k at ends", (9, H, W), (16, 16), 64, True, edge=True)
+    check("edge indexed k at ends", (9, H, W), (16, 16), 64, "two", edge=True)
+    check("edge stack k at ends", (8, SLAM_H // 2, SLAM_W // 2), (16, 16), 64, "stack",
+          edge=True)
     check("edge rect borders", (H, W), (12, 140), 16, False, edge=True)
     check("edge centred NaN/inf", (H, W), (10, 10), 64, False, nonfinite=True)
-    check("edge two-source NaN/inf", (9, H // 2, W // 2), (16, 16), 64, True, edge=True,
+    check("edge two-source NaN/inf", (9, H // 2, W // 2), (16, 16), 64, "two", edge=True,
           nonfinite=True)
     check("edge descriptors NaN/inf", (SLAM_H, SLAM_W), (34, 34), 16, False, nonfinite=True)
     return results, max_err
@@ -380,6 +425,194 @@ def slam_phase(torch, extract, extract_aligned, synthetic, camera, metrics, dev,
     return launches
 
 
+class K1Sites:
+    """K1 launches by the engine program that made them: wraps the one
+    function every K1 entry launches through and, at each launch, looks up
+    the call stack for the first engine program (K1_SITES)."""
+
+    def __init__(self, extract):
+        self.extract = extract
+        self.real = extract._run
+        self.counts = {}
+
+    def __enter__(self):
+        def run(*args, _real=self.real):
+            _real(*args)
+            frame = sys._getframe(1)
+            while frame is not None and frame.f_code.co_name not in K1_SITES:
+                frame = frame.f_back
+            site = K1_SITES[frame.f_code.co_name] if frame is not None else "other"
+            self.counts[site] = self.counts.get(site, 0) + 1
+
+        self.extract._run = run
+        return self
+
+    def __exit__(self, *exc):
+        self.extract._run = self.real
+
+
+def mono_phase(torch, extract, dev, card):
+    """Phase 7. MonocularVO (photometric window BA) on the reference's
+    500-frame mono cell (`tools/mono_cell.py`, seed 0); returns K1's
+    launches during the run."""
+    from viso_tpu_torch.slam.engine import MonocularVO
+    from viso_tpu_torch.tools import mono_cell
+
+    t0 = time.perf_counter()
+    cfg = mono_cell.config()
+    frames, Rs, ts = mono_cell.render(MONO_FRAMES)
+    print(f"rendered {len(frames)} mono frames {mono_cell.H}x{mono_cell.W} (uint8) in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+
+    extract.launch.launches = 0
+    vo = MonocularVO(cfg, device=dev)
+    try:
+        with K1Sites(extract) as sites, warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                nxt = vo.to_device(frames[0])
+                for i in range(MONO_FRAMES):
+                    if i == MONO_WARMUP:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                    cur = nxt
+                    nxt = vo.to_device(frames[i + 1]) if i + 1 < MONO_FRAMES else None
+                    vo.process(cur)
+                torch.cuda.synchronize()
+                elapsed = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        launches = extract.launch.launches
+        syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
+        sync_sites = collections.Counter(
+            f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in syncs).most_common(8)
+        R_est, t_est = vo.trajectory()
+        states = [r.state for r in vo.results]
+        n_kf = sum(r.is_keyframe for r in vo.results)
+        reinits = vo.num_reinits
+        # One more keyframe frame (the last frame again, the keyframe
+        # decision forced) under torch.profiler: its kernels, their device
+        # time and the device's busy share of the frame's wall time.
+        vo._should_insert_keyframe = lambda n_tracked: True
+        prof_kf = profile_keyframe(torch, vo, frames[-1])
+        # The keyframe programs' own launch counts: LK from the previous
+        # keyframe to the last frame (as the mono keyframe program calls
+        # it) and the photometric window BA, each alone under the profiler.
+        from viso_tpu_torch.ops import lk
+
+        prev_pyr = tuple(lvl[vo.kf_order[-2]] for lvl in vo.map.kf_pyr)
+        uv, _, det = vo._detect(prev_pyr)
+        cam_fixed = torch.zeros(cfg.max_keyframes, dtype=torch.bool, device=dev)
+        prof_calls = {
+            "lk.track": profile_call(torch, lambda: lk.track(prev_pyr, vo.last_pyr, uv, det)),
+            "photometric BA": profile_call(torch, lambda: vo._ba_program(
+                vo.map, cam_fixed, vo.kf_order[-1], vo.R, vo.t)),
+        }
+    finally:
+        vo.close()
+    n_timed = MONO_FRAMES - MONO_WARMUP
+    print(f"MonocularVO 500-frame mono cell: {n_timed / elapsed:.3f} frames/s over {n_timed} "
+          f"frames after {MONO_WARMUP} warmup (host clock, ending in synchronize) [{card}]")
+    if "tracking" not in states:
+        raise AssertionError("the mono engine never reached tracking")
+    if len(R_est) != MONO_FRAMES or not (np.isfinite(R_est).all() and np.isfinite(t_est).all()):
+        raise AssertionError("mono trajectory has the wrong length or non-finite poses")
+    ate, drift, rot = mono_cell.accuracy(R_est, t_est, Rs, ts)
+    print(f"MonocularVO: scale-aligned ATE {ate:.6f} m (limit {MONO_ATE_LIMIT_M} m), scale "
+          f"drift end/start {drift:.3f}, end rotation error {rot:.3f} deg")
+    print(f"MonocularVO: {n_kf} keyframes, {reinits} re-inits, first tracking frame "
+          f"{states.index('tracking')}, {states.count('init')} frames in init, {len(syncs)} "
+          f"synchronising calls over {MONO_FRAMES} frames (set_sync_debug_mode warn), by line "
+          f"{sync_sites} [{card}]")
+    print(f"K1 launches during the mono run: {launches}, by call site "
+          f"{dict(sorted(sites.counts.items()))}")
+    n_kernels, dev_ms, wall_ms, k1_sites = prof_kf
+    print(f"profiled mono keyframe frame: {n_kernels} kernels, {dev_ms:.3f} ms device time over "
+          f"{wall_ms:.3f} ms wall (device busy {100 * dev_ms / wall_ms:.2f} %), K1 launches by "
+          f"call site {dict(sorted(k1_sites.items()))} [{card}]")
+    for name, (n, ms) in prof_calls.items():
+        print(f"profiled {name} alone: {n} kernels, {ms:.3f} ms device time [{card}]")
+    if not (np.isfinite(ate) and ate < MONO_ATE_LIMIT_M):
+        raise AssertionError(f"mono ATE {ate:.4f} m over {MONO_ATE_LIMIT_M} m")
+    if sites.counts.get("lk", 0) <= 0 or sites.counts.get("photo-BA", 0) <= 0:
+        raise AssertionError(f"K1 never launched from LK or photometric BA: {sites.counts}")
+    if launches != sum(sites.counts.values()):
+        raise AssertionError("K1 launches not all attributed to a call site")
+    return launches
+
+
+def profile_keyframe(torch, vo, frame):
+    """One frame under torch.profiler: (kernels, device kernel ms, wall ms,
+    K1 launches by call site)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from viso_tpu_torch.geometry import extract
+
+    torch.cuda.synchronize()
+    with K1Sites(extract) as sites, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        vo.process(frame)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(kernels), sum(e.device_time for e in kernels) / 1e3, wall_ms, sites.counts
+
+
+def profile_call(torch, fn):
+    """One call of fn under torch.profiler: (kernels, device kernel ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(kernels), sum(e.device_time for e in kernels) / 1e3
+
+
+def cli_phase(torch, extract, card):
+    """Phase 8. `python -m viso_tpu_torch.run` on the card (its default
+    device), 30 synthetic frames in each of stereo, slam (with a
+    checkpoint every 8 frames) and mono mode; returns K1's launches."""
+    import tempfile
+
+    from viso_tpu_torch import run
+    from viso_tpu_torch.data import native
+
+    print(f"native decoder available: {native.available()}")
+    launches = 0
+    with tempfile.TemporaryDirectory(prefix="viso_cli_") as tmp:
+        for mode in ("stereo", "slam", "mono"):
+            out = os.path.join(tmp, mode)
+            argv = ["--dataset", "synthetic", "--mode", mode, "--max-frames", str(CLI_FRAMES),
+                    "--out-dir", out]
+            if mode == "slam":
+                argv += ["--checkpoint-every", "8"]
+            extract.launch.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                summary = run.main(argv)
+            launches += extract.launch.launches
+            with open(os.path.join(out, "frames.jsonl")) as f:
+                n_lines = sum(1 for _ in f)
+            files = sorted(os.listdir(out))
+            print(f"CLI --mode {mode}: ATE {summary['ate_rmse_m']:.6f} m (limit "
+                  f"{CLI_ATE_LIMITS[mode]}), {summary['keyframes']} keyframes, device "
+                  f"{summary['device']}, {n_lines} log lines, K1 launches "
+                  f"{extract.launch.launches}, {time.perf_counter() - t0:.1f} s, files {files}, "
+                  f"plots_skipped {summary.get('plots_skipped')!r} [{card}]")
+            need = {"trajectory.txt", "frames.jsonl", "summary.json"} | (
+                {"slam.npz"} if mode == "slam" else set())
+            if not need <= set(files) or n_lines != CLI_FRAMES:
+                raise AssertionError(f"--mode {mode}: files {files}, {n_lines} log lines")
+            if not (summary["device"].startswith("cuda") and np.isfinite(summary["ate_rmse_m"])
+                    and summary["ate_rmse_m"] < CLI_ATE_LIMITS[mode]):
+                raise AssertionError(f"--mode {mode}: summary {summary}")
+    return launches
+
+
 def main() -> int:
     # The run uses one card: show torch only the first visible one, so the
     # device count in the last line is the number of cards the run used.
@@ -426,6 +659,10 @@ def main() -> int:
     k1_frame = {key: sum(cases[n][key] for n in bench_k1.TRACK_CASES) for key in FRAME_KEYS}
     print("K1 per tracked frame (6 calls): "
           + " ".join(f"{key}={k1_frame[key]:.6f}" for key in FRAME_KEYS) + f" [{card}]")
+    mono_kf = [n for n in cases if n.startswith("mono")]
+    print(f"K1 per mono keyframe's LK and photo-BA ({len(mono_kf)} calls): "
+          + " ".join(f"{key}={sum(cases[n][key] for n in mono_kf):.6f}" for key in FRAME_KEYS)
+          + f" [{card}]")
     print(f"phase 3 wall {time.perf_counter() - t0:.1f} s")
 
     # Phase 4: StereoVO on the headline sequence.
@@ -529,7 +766,17 @@ def main() -> int:
                          card)
     print(f"phase 6 wall {time.perf_counter() - t0:.1f} s")
 
-    # Phase 7: results.
+    # Phase 7: MonocularVO on the 500-frame mono cell.
+    t0 = time.perf_counter()
+    mono_k1 = mono_phase(torch, extract, dev, card)
+    print(f"phase 7 wall {time.perf_counter() - t0:.1f} s")
+
+    # Phase 8: the CLI on the card.
+    t0 = time.perf_counter()
+    cli_k1 = cli_phase(torch, extract, card)
+    print(f"phase 8 wall {time.perf_counter() - t0:.1f} s")
+
+    # Phase 9: results.
     print(f"total wall {time.perf_counter() - t_start:.1f} s")
     # ms, plain_ms, bound_ms, library_ms: device times (CUDA graph replay),
     # K1 summed over a tracked frame's 6 calls, K2 over the tool's 12 calls.
@@ -545,7 +792,8 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         record("extract_windows", "viso_tpu_torch/csrc/extract_windows.cu",
-               "viso_tpu/geometry/extract_pallas.py:64", launches + slam_k1, max_err, k1_frame),
+               "viso_tpu/geometry/extract_pallas.py:64", launches + slam_k1 + mono_k1 + cli_k1,
+               max_err, k1_frame),
         record("extract_aligned", "viso_tpu_torch/csrc/extract_aligned.cu",
                "tools/bench_extract.py:37", k2["launches"], k2["max_abs_err"], k2),
     ]}))

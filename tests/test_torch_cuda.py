@@ -249,3 +249,52 @@ def test_descriptors_launch_k1_on_cuda(rng, cuda_device):
     ref = ref.float()
     assert torch.equal(got != 0, ref != 0)
     assert int((got != ref).sum()) <= 0.01 * int((ref != 0).sum())
+
+
+@pytest.mark.cuda
+def test_mono_call_sites_launch_the_kernel(rng, cuda_device):
+    """LK (one two-source launch per level) and the photometric BA's window
+    cache (one indexed launch over the keyframe stack) take K1 on CUDA
+    tensors and agree with the same code on the CPU (the plain version):
+    LK within 0.01 px, the windows bit-equal where the origins agree."""
+    from viso_tpu_torch.backend import ba_photometric as pba
+    from viso_tpu_torch.data import synthetic
+    from viso_tpu_torch.geometry import camera
+    from viso_tpu_torch.ops import lk, pyramid
+
+    tex = synthetic.smooth_texture(rng, 184, 640)
+    a, b = tex[:, :616], tex[:, 3:619]          # a 3 px shift
+    kp = np.stack([rng.uniform(30, 586, 256), rng.uniform(30, 154, 256)], -1).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        pa = pyramid.build_pyramid(torch.from_numpy(a).to(dev), 4)
+        pb = pyramid.build_pyramid(torch.from_numpy(b).to(dev), 4)
+        before = t_ext.launch.launches
+        kp2, _, ok = lk.track(pa, pb, torch.from_numpy(kp).to(dev), torch.ones(256, dtype=torch.bool,
+                                                                                device=dev))
+        out[str(dev)] = (kp2.cpu().numpy(), ok.cpu().numpy(), t_ext.launch.launches - before)
+    (k_c, ok_c, n_c), (k_g, ok_g, n_g) = out["cpu"], out[str(cuda_device)]
+    assert n_c == 0 and n_g == 4
+    both = ok_c & ok_g
+    assert both.sum() > 200 and np.abs(k_c - k_g)[both].max() < 1e-2
+
+    C, L = 8, 1024
+    images = rng.uniform(0, 255, (C, 92, 308)).astype(np.float32)
+    pts = np.stack([rng.uniform(-3, 3, L), rng.uniform(-1, 1, L), rng.uniform(4, 20, L)], -1)
+    intr = camera.Intrinsics.create(179.7, 179.7, 151.6, 46.1)
+    arrays = dict(
+        R=np.tile(np.eye(3, dtype=np.float32), (C, 1, 1)),
+        t=(np.arange(C)[:, None] * np.array([0.1, 0.0, 0.0])).astype(np.float32),
+        points=pts.astype(np.float32), images=images,
+        template=np.zeros((L, 16), np.float32), anchor_idx=np.zeros(L, np.int64),
+        obs_mask=np.ones((C, L), bool), cam_mask=np.ones(C, bool), point_mask=np.ones(L, bool))
+    wins = {}
+    for dev in ("cpu", cuda_device):
+        prob = pba.PhotoBAProblem(**{k: torch.from_numpy(v).to(dev) for k, v in arrays.items()})
+        before = t_ext.launch.launches
+        w = pba._precompute_windows(prob, intr, pba.PhotoBAParams())
+        wins[str(dev)] = (w.win.cpu(), w.base.cpu(), t_ext.launch.launches - before)
+    (w_c, b_c, n_c), (w_g, b_g, n_g) = wins["cpu"], wins[str(cuda_device)]
+    assert n_c == 0 and n_g == 1 and w_g.shape == (C * L, 16, 16)
+    same = (b_c == b_g).all(dim=-1)
+    assert same.float().mean() > 0.99 and torch.equal(w_c[same], w_g[same])

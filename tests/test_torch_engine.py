@@ -204,13 +204,48 @@ def test_programs_match_on_the_reference_map(runs, frames):
 
 
 def test_unported_backends_raise():
-    for kw in (dict(ba_backend="photometric"), dict(distribute_ba=True)):
-        vo = StereoVO(VOConfig(**{**CFG, **kw}), device="cpu")
-        vo.kf_order = [0, 1]
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            vo._run_window_ba([0])
+    vo = StereoVO(VOConfig(**{**CFG, "distribute_ba": True}), device="cpu")
+    vo.kf_order = [0, 1]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        vo._run_window_ba([0])
     with pytest.raises(TypeError):
         StereoVO(VOConfig(**CFG))      # the device is explicit
+
+
+def test_photometric_window_ba_matches_reference(runs):
+    """StereoVO(ba_backend="photometric") runs `_run_window_ba` on the
+    reference's map (landmarks perturbed by 2 cm, so LM has work to do)
+    and matches the JAX engine's photometric window BA: the bench's
+    `bench_backends` configuration, photometric residuals on pyramid
+    level 1 with the first keyframe frozen."""
+    jvo, _ = runs
+    noise = np.random.default_rng(12).normal(0, 0.02, (CFG["max_landmarks"], 3))
+    pts = (np.asarray(jvo.map.points) + noise).astype(np.float32)
+    slot = jvo.kf_order[-1]
+    jp = JStereoVO(JVOConfig(**CFG, ba_backend="photometric"))
+    tp = StereoVO(VOConfig(**CFG, ba_backend="photometric"), device="cpu")
+    assert tp._ba_backend() == "photometric"
+    jp.map = jvo.map._replace(points=jnp.asarray(pts))
+    tp.map = _jax_map_to_port(jp.map)
+    jp.kf_order, tp.kf_order = list(jvo.kf_order), list(jvo.kf_order)
+    # The engine runs BA right after inserting keyframe `slot`, with the
+    # tracking pose equal to that keyframe's pose.
+    jp.R, jp.t = jvo.map.kf_R[slot], jvo.map.kf_t[slot]
+    tp.R, tp.t = (torch.tensor(np.asarray(x)) for x in (jp.R, jp.t))
+    tp.prev_R, tp.prev_t = tp.R, tp.t
+    cost_j = jp._run_window_ba(jvo.kf_order[:1])
+    cost_t = tp._run_window_ba(jvo.kf_order[:1])
+    moved = np.abs(np.asarray(jp.map.points) - pts).max()
+    assert moved > 1e-3, moved
+    # 8 f32 LM iterations of photometric Schur solves: 1e-3 relative on
+    # the cost, 1e-4 on the adopted pose, 2 mm on landmarks at 1-30 m.
+    np.testing.assert_allclose(float(cost_t), float(cost_j), rtol=1e-3)
+    _close(tp.R, jp.R, 1e-4)
+    _close(tp.t, jp.t, 1e-4)
+    keep = np.asarray(jp.map.point_mask)
+    _close(tp.map.points.numpy()[keep], np.asarray(jp.map.points)[keep], 2e-3)
+    jp.close()
+    tp.close()
 
 
 def test_synthetic_port_matches_reference():

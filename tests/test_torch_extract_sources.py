@@ -167,18 +167,28 @@ def test_new_entries_dispatch_by_device(rng):
 def test_k1_case_table_and_frame_bound(monkeypatch):
     """The main-path case table (shared by chip_smoke.py and
     tools/bench_k1.py): every window fits its image, align's cases hold
-    the 8-keyframe stack plus the current image, a tracked frame makes 6
-    calls, and their bytes bound the frame at 5.243 us on the H100."""
+    the 8-keyframe stack plus the current image and LK's the reference
+    and current image, a tracked frame makes 6 calls, and their bytes
+    bound the frame at 5.243 us on the H100; the mono photo-BA call is
+    8,192 windows of 16x16 from the (8, 92, 308) stack, bound 5.008 us;
+    the CLI's is 16,384 from (8, 120, 160)."""
     from viso_tpu_torch.tools import bench_k1
 
-    assert len(bench_k1.MAIN_PATH_CASES) == 26
-    for name, shape, (h, w), n, indexed in bench_k1.MAIN_PATH_CASES:
+    assert len(bench_k1.MAIN_PATH_CASES) == 49
+    for name, shape, (h, w), n, source in bench_k1.MAIN_PATH_CASES:
         assert h <= shape[-2] and w <= shape[-1] and n > 0, name
-        assert indexed == (len(shape) == 3) and (not indexed or shape[0] == 9), name
+        assert source in (False, "two", "stack") and bool(source) == (len(shape) == 3), name
+        if source == "two":
+            assert shape[0] == (2 if "lk" in name else 9) and n % 2 == 0, name
     assert len(bench_k1.TRACK_CASES) == 6
     cases = {c[0]: c for c in bench_k1.MAIN_PATH_CASES}
     frame = sum(t_bench.bound_ms(cases[n][3], *cases[n][2]) for n in bench_k1.TRACK_CASES)
     assert round(1e3 * frame, 3) == 5.243
+    _, shape, hw, n, source = cases["mono photo-BA win16"]
+    assert (shape, hw, n, source) == ((8, 92, 308), (16, 16), 8192, "stack")
+    assert round(1e3 * t_bench.bound_ms(n, *hw), 3) == 5.008
+    _, shape, hw, n, source = cases["cli photo-BA win16"]
+    assert (shape, hw, n, source) == ((8, 120, 160), (16, 16), 16384, "stack")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         bench_k1.main([])

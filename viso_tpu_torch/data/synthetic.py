@@ -2,10 +2,11 @@
 only; port of `viso_tpu/data/synthetic.py`, whose trajectories call the
 JAX `so3_exp`).
 
-What the stereo VO and SLAM slices need: the corridor and room scenes,
-the forward and orbit trajectories and stereo pairs. Textured planes with known poses, depths
-and intrinsics give photometrically consistent sequences with exact
-ground truth.
+Textured planes with known poses, depths and intrinsics give
+photometrically consistent sequences with exact ground truth: the
+corridor and room scenes, forward and orbit trajectories, mono sequences
+and stereo pairs, exact depths along pixel rays, and a per-frame
+photometric degradation (`PhotometricNuisance`).
 
 Host-side NumPy: data generation is not a hot path.
 """
@@ -145,6 +146,40 @@ class PlaneScene:
             depth = np.where(hit, z_cam.astype(np.float32), depth)
         return img.reshape(h, w), depth.reshape(h, w)
 
+    def depth_at(self, intr, R, t, uv):
+        """Exact depths (N,) for pixel coords uv (N, 2) in camera (R, t);
+        inf where no plane is hit."""
+        R = np.asarray(R, np.float64)
+        t = np.asarray(t, np.float64)
+        fx, fy = float(intr.fx), float(intr.fy)
+        cx, cy = float(intr.cx), float(intr.cy)
+        uv = np.asarray(uv, np.float64)
+        rays_c = np.stack(
+            [(uv[:, 0] - cx) / fx, (uv[:, 1] - cy) / fy, np.ones(len(uv))], -1
+        )
+        origin = -R.T @ t
+        rays_w = rays_c @ R
+        depth = np.full(len(uv), np.inf, np.float64)
+        for plane in self.planes:
+            denom = rays_w @ plane.n
+            num = (plane.p0 - origin) @ plane.n
+            with np.errstate(divide="ignore", invalid="ignore"):
+                s = num / denom
+            pts = origin + s[:, None] * rays_w
+            rel = pts - plane.p0
+            a = rel @ plane.e1
+            b = rel @ plane.e2
+            z_cam = (pts - origin) @ R[2]
+            hit = (
+                (s > 1e-6)
+                & (z_cam > 1e-6)
+                & (np.abs(a) < plane.extent)
+                & (np.abs(b) < plane.extent)
+                & (z_cam < depth)
+            )
+            depth = np.where(hit, z_cam, depth)
+        return depth
+
 
 def corridor_scene(rng, tex_size=768, far_z=30.0):
     """Two side walls + ground + far wall: rich non-planar structure.
@@ -241,3 +276,53 @@ def make_stereo_pair(scene, intr, R, t, h, w, baseline=0.54):
     t_right = -np.asarray(R) @ c_r
     img_r, _ = scene.render(intr, R, t_right, h, w)
     return img_l, img_r, depth_l
+
+
+def render_sequence(scene, intr, Rs, ts, h, w):
+    """Mono frames (float32 (h, w) each) rendered at the poses (Rs, ts)."""
+    return [scene.render(intr, R, t, h, w)[0] for R, t in zip(Rs, ts)]
+
+
+class PhotometricNuisance:
+    """Per-frame photometric degradation: a smoothly drifting exposure
+    gain/bias (an auto-exposure-style random walk), Gaussian sensor noise
+    and mild defocus blur -- a real sensor's violations of the brightness
+    constancy that direct tracking assumes.
+
+    Stereo: call `step` once per frame and `apply` to both images (a rig's
+    two imagers share exposure control; noise is drawn per image).
+    """
+
+    def __init__(self, rng, gain_sigma=0.02, bias_sigma=1.0,
+                 gain_range=(0.7, 1.4), bias_range=(-25.0, 25.0),
+                 noise_std=3.0, blur_sigma=0.6):
+        self.rng = rng
+        self.gain = 1.0
+        self.bias = 0.0
+        self.gain_sigma = gain_sigma
+        self.bias_sigma = bias_sigma
+        self.gain_range = gain_range
+        self.bias_range = bias_range
+        self.noise_std = noise_std
+        self.blur_sigma = blur_sigma
+
+    def step(self):
+        """Advance the exposure random walk one frame."""
+        self.gain = float(np.clip(
+            self.gain * np.exp(self.rng.normal(0.0, self.gain_sigma)), *self.gain_range
+        ))
+        self.bias = float(np.clip(
+            self.bias + self.rng.normal(0.0, self.bias_sigma), *self.bias_range
+        ))
+
+    def apply(self, img):
+        """Degrade one image with the current exposure state."""
+        from scipy.ndimage import gaussian_filter
+
+        out = np.asarray(img, np.float32)
+        if self.blur_sigma > 0:
+            out = gaussian_filter(out, self.blur_sigma)
+        out = out * self.gain + self.bias
+        if self.noise_std > 0:
+            out = out + self.rng.normal(0.0, self.noise_std, out.shape)
+        return np.clip(out, 0.0, 255.0).astype(np.float32)

@@ -151,6 +151,40 @@ def select(cond, a: MapState, b: MapState) -> MapState:
     return MapState(*(_where(cond, x, y) for x, y in zip(a, b)))
 
 
+def as_photo_ba_problem(m: MapState, intr, level: int = 1, half_patch: int = 2):
+    """View the window as a backend.ba_photometric.PhotoBAProblem on
+    pyramid `level`. Each landmark's 4x4 template is sampled from its
+    anchor -- the observing keyframe with the smallest source frame id
+    (slots are round-robin, so slot order is not age order; a tie goes to
+    the first slot, as `jnp.argmin`) -- at the recorded observation pixel,
+    not at the point's projection. Returns (PhotoBAProblem,
+    level_intrinsics)."""
+    from viso_tpu_torch.backend import ba_photometric as pba
+    from viso_tpu_torch.geometry import sampling
+
+    images = m.kf_pyr[level]
+    L = m.points.shape[0]
+    age = torch.where(m.obs_mask, m.kf_frame_id[:, None], 2**30)   # (K, L)
+    anchor_idx = torch.argmin(age, dim=0)                          # (L,)
+    uv_anchor = m.obs_uv[anchor_idx, torch.arange(L, device=images.device)] * 0.5**level
+    offs = sampling.patch_offsets(half_patch, uv_anchor.dtype, uv_anchor.device)
+    template = sampling.bilinear_indexed(
+        images, anchor_idx, uv_anchor[:, None, :] + offs.reshape(-1, 2)[None]
+    )
+    prob = pba.PhotoBAProblem(
+        R=m.kf_R,
+        t=m.kf_t,
+        points=m.points,
+        images=images,
+        template=template,
+        anchor_idx=anchor_idx,
+        obs_mask=m.obs_mask,
+        cam_mask=m.kf_mask,
+        point_mask=m.point_mask,
+    )
+    return prob, intr.at_level(level)
+
+
 def as_ba_problem(m: MapState, intr):
     """View the window as a backend.ba.BAProblem (normalized obs coords)."""
     from viso_tpu_torch.backend import ba

@@ -23,6 +23,7 @@ import torch
 
 from viso_tpu_torch.backend import robust
 from viso_tpu_torch.geometry import se3
+from viso_tpu_torch.ops import ransac
 
 
 def reprojection_residual(R, t, points_w, x):
@@ -144,17 +145,8 @@ def _dlt_pnp(points_w, x):
 
 def draw_hypotheses(generator, mask, num_hypotheses: int = 512):
     """(H, 6) point indices: six draws per hypothesis, with replacement,
-    uniform over the masked points (the law of `jax.random.categorical`
-    on logits 0 / -inf). With no masked point every index is 0, as the
-    JAX draw gives. No host sync."""
-    n_valid = torch.sum(mask)
-    valid_first = torch.argsort((~mask).to(torch.uint8), stable=True)
-    u = torch.rand((num_hypotheses, 6), generator=generator, device=mask.device)
-    k = torch.clamp(
-        torch.floor(u * n_valid).to(torch.int64), min=0
-    )
-    k = torch.minimum(k, torch.clamp(n_valid - 1, min=0))
-    return valid_first[k]
+    uniform over the masked points (`ransac.draw_indices`). No host sync."""
+    return ransac.draw_indices(generator, mask, num_hypotheses, 6)
 
 
 def pnp_ransac_from_indices(idx, points_w, x, mask, threshold: float = 4e-6,

@@ -1,0 +1,116 @@
+"""Two-view initialization: motion hypotheses, selection, scale fixing
+(port of `viso_tpu/ops/twoview.py`).
+
+Disparity gate, essential and homography RANSAC, candidate
+decomposition, gated motion selection over a (candidates x
+correspondences) triangulation grid, and mean-depth normalization.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from viso_tpu_torch.geometry import epipolar, triangulation
+from viso_tpu_torch.ops import ransac
+
+
+class TwoViewResult(NamedTuple):
+    R: torch.Tensor             # (3, 3) world(frame1)->frame2
+    t: torch.Tensor             # (3,)
+    points: torch.Tensor        # (N, 3) triangulated points (frame1 = world)
+    inliers: torch.Tensor       # (N,) bool
+    num_inliers: torch.Tensor   # scalar int
+    num_tracks: torch.Tensor    # scalar int (valid correspondences in)
+    disparity_ok: torch.Tensor  # scalar bool: enough baseline to init
+    # Median triangulation parallax (deg) over the selected motion's
+    # inliers: a rotation-compensated baseline measure.
+    median_parallax_deg: torch.Tensor
+
+
+class TwoViewParams(NamedTuple):
+    focal: float = 520.0                  # for pixel-unit gates
+    projection_error_thresh: float = 0.3  # px
+    parallax_thresh_deg: float = 1.0      # accepts LOW parallax, as the reference
+    disparity_squared_thresh: float = 15.0**2  # px^2
+    ransac_hypotheses: int = 512
+    use_homography: bool = True
+
+
+def select_motion(x1, x2, mask, Rs, ts, params: TwoViewParams):
+    """Score candidate motions Rs (C, 3, 3), ts (C, 3) by the count of
+    correspondences x1, x2 (N, 2) passing the cheirality, parallax and
+    reprojection gates. Returns (R, t, points (N, 3), inliers (N,),
+    num_inliers, median parallax deg), scaled to mean inlier depth 1.
+
+    The median is `nanquantile(., 0.5)`, which averages the two middle
+    values as `jnp.nanmedian` does (`torch.nanmedian` returns the lower).
+    """
+    C = Rs.shape[0]
+    eye = torch.eye(3, dtype=x1.dtype, device=x1.device).expand(C, 3, 3)[:, None]
+    zero = torch.zeros((C, 1, 3), dtype=x1.dtype, device=x1.device)
+    Rc, tc = Rs[:, None], ts[:, None]
+    Xw, d1, d2 = triangulation.triangulate(x1[None], x2[None], eye, zero, Rc, tc)
+    good = (d1 > 0) & (d2 > 0)
+    cosang = triangulation.parallax_cos(Xw, eye, zero, Rc, tc)
+    good &= cosang >= float(np.cos(np.deg2rad(np.float32(params.parallax_thresh_deg))))
+    e1 = triangulation.reprojection_error(Xw, x1[None], eye, zero)
+    e2 = triangulation.reprojection_error(Xw, x2[None], Rc, tc)
+    px = params.focal
+    good &= (e1 * px <= params.projection_error_thresh) & (
+        e2 * px <= params.projection_error_thresh
+    )
+    good &= mask[None, :]
+
+    counts = torch.sum(good, dim=-1)
+    best = torch.argmax(counts)
+    R, t = Rs[best], ts[best]
+    inl = good[best]
+    pts = Xw[best]
+    # Mean-depth normalization: the monocular scale fix.
+    mean_depth = torch.sum(torch.where(inl, pts[:, 2], 0.0)) / torch.clamp(
+        torch.sum(inl), min=1
+    )
+    scale = torch.where(mean_depth > 1e-9, 1.0 / mean_depth, 1.0)
+    ang = torch.rad2deg(torch.arccos(torch.clamp(cosang[best], -1.0, 1.0)))
+    med_par = torch.nanquantile(torch.where(inl, ang, float("nan")), 0.5)
+    med_par = torch.where(torch.isfinite(med_par), med_par, 0.0)
+    return R, t * scale, pts * scale, inl, counts[best], med_par
+
+
+def initialize_from_indices(idx_e, idx_h, x1, x2, mask,
+                            params: TwoViewParams = TwoViewParams()):
+    """Two-view initialization on normalized correspondences x1, x2 (N, 2)
+    with the RANSAC hypotheses given: idx_e (S, 8) for the essential
+    matrix, idx_h (S/2, 4) for the homography (ignored without
+    `use_homography`)."""
+    n_tracks = torch.sum(mask)
+    # Disparity gate: mean squared pixel disparity >= thresh.
+    disp_sq = torch.sum((x1 - x2) ** 2, dim=-1) * params.focal**2
+    mean_disp = torch.sum(torch.where(mask, disp_sq, 0.0)) / torch.clamp(n_tracks, min=1)
+    disparity_ok = mean_disp >= params.disparity_squared_thresh
+
+    # Sampson threshold in normalized units ~ (thresh_px / f)^2.
+    sampson_thresh = (params.projection_error_thresh / params.focal) ** 2 * 4.0
+    e_res = ransac.essential_ransac_from_indices(idx_e, x1, x2, mask, threshold=sampson_thresh)
+    Rs, ts = epipolar.decompose_essential(e_res.model)
+    if params.use_homography:
+        h_res = ransac.homography_ransac_from_indices(
+            idx_h, x1, x2, mask, threshold=sampson_thresh
+        )
+        Rs_h, ts_h, _ = epipolar.decompose_homography(h_res.model)
+        Rs = torch.cat([Rs, Rs_h], dim=0)
+        ts = torch.cat([ts, ts_h], dim=0)
+    R, t, pts, inl, n_inl, med_par = select_motion(x1, x2, mask, Rs, ts, params)
+    return TwoViewResult(R, t, pts, inl, n_inl, n_tracks, disparity_ok, med_par)
+
+
+def initialize(generator, x1, x2, mask, params: TwoViewParams = TwoViewParams()):
+    """`initialize_from_indices` with the hypotheses drawn from `generator`:
+    the essential matrix's first, then the homography's."""
+    S = params.ransac_hypotheses
+    idx_e = ransac.draw_indices(generator, mask, S, 8)
+    idx_h = ransac.draw_indices(generator, mask, S // 2, 4)
+    return initialize_from_indices(idx_e, idx_h, x1, x2, mask, params)

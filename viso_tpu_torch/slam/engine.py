@@ -1,29 +1,33 @@
 """Visual-odometry engines: the per-frame state machine (port of
 `viso_tpu/slam/engine.py`: `VOConfig`, `FrameResult`, `BaseVO`,
-`StereoVO`).
+`StereoVO`, `MonocularVO`, `blend_recovery_scale`).
 
-Frame-rate decisions (keyframe policy, lost tracking) are host-side
-Python on per-frame scalars; every per-feature / per-pixel computation
-is tensor code on the engine's device, in four programs:
+Frame-rate decisions (keyframe policy, lost tracking, initialization
+gates) are host-side Python on per-frame scalars; every per-feature /
+per-pixel computation is tensor code on the engine's device, in these
+programs:
 
   * track (every frame): pyramid, direct GN against frozen keyframe
     templates, 2-level LK alignment, 4-step PnP refine, acceleration gate;
-  * stereo_kf (every keyframe): evict, multi-level FAST, stereo match,
-    backproject, allocate landmarks;
-  * ba (every keyframe): reprojection LM with the adoption gate;
+  * stereo_kf / mono_kf (every keyframe): evict, insert, detect, then
+    stereo match and backprojection (stereo) or LK tracking from the
+    previous keyframe and gated two-view triangulation with far points
+    (mono), and landmark allocation;
+  * ba (every keyframe): reprojection or photometric window LM with the
+    adoption gate ("auto": photometric for mono, reprojection for stereo);
   * templates (every keyframe): frozen tracking templates.
 
-The per-frame path is branchless on device values: nothing in `track`
-reads a device scalar on the host. Per-frame stats reach the host
-through a non-blocking copy into pinned memory, consumed a fixed or
-opportunistic number of frames later (`stats_max_lag`,
-`stats_hard_lag`, `stats_deterministic`, as in the reference). All
-shapes are static across frames.
+The per-frame path of a tracking engine is branchless on device values:
+nothing in `track` reads a device scalar on the host. Per-frame stats
+reach the host through a non-blocking copy into pinned memory, consumed a
+fixed or opportunistic number of frames later (`stats_max_lag`,
+`stats_hard_lag`, `stats_deterministic`, as in the reference). The
+monocular bootstrap reads its gates on the host, as the reference does
+(`MonocularVO._try_initialize`). All shapes are static across frames.
 
 `BaseVO._post_keyframe` is the keyframe hook of the SLAM layer
 (`slam/full.py`); here it is a no-op. Not ported yet (see ROADMAP.md):
-`MonocularVO`, the photometric BA backend and distributed BA; the last
-two raise NotImplementedError.
+distributed BA, which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,11 +37,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from viso_tpu_torch.backend import ba
+from viso_tpu_torch.backend import ba, ba_photometric
 from viso_tpu_torch.geometry import camera as cam_mod
-from viso_tpu_torch.geometry import se3
+from viso_tpu_torch.geometry import se3, triangulation
 from viso_tpu_torch.mapping import map_state
-from viso_tpu_torch.ops import align, direct, fast, pnp, pyramid, stereo
+from viso_tpu_torch.ops import align, direct, fast, lk, pnp, pyramid, stereo, twoview
 
 
 @dataclass
@@ -105,7 +109,6 @@ class VOConfig:
     photo_ba_level: int = 1
     photo_ba_huber: float = 12.0
     distribute_ba: bool = False
-    mesh_devices: int = 0
 
     # Stereo
     max_disparity: int = 128
@@ -168,8 +171,8 @@ class BaseVO:
         self.cfg = config
         self.device = torch.device(device)
         self.intr = config.intrinsics()
-        # The reference holds a jax.random key here; the stereo path draws
-        # no random numbers, so this generator is unused until mono lands.
+        # The reference holds a jax.random key here: the monocular
+        # bootstrap's RANSAC draws come from this generator.
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
         self.map = map_state.empty(
@@ -191,6 +194,11 @@ class BaseVO:
         self.kf_order: list[int] = []   # slots, oldest first
         self.results: list[FrameResult] = []
         self._pending_stats: list = []
+        # Debug overlays (run.py --viz-every): when True, each tracked frame
+        # keeps (ok_mask, refined_uv, image, frame index) as device tensors
+        # in _last_track; pulling them is the caller's choice and cost.
+        self.debug_overlay = False
+        self._last_track = None
 
     # -- helpers -------------------------------------------------------
     def _next_kf_slot_peek(self) -> int:
@@ -363,21 +371,19 @@ class BaseVO:
         """(Re)build the frozen tracking templates from keyframe `slot`."""
         self._templates, self._active_idx = self._templates_program(self.map, slot)
 
+    # What ba_backend="auto" resolves to (MonocularVO: "photometric").
+    _default_ba_backend = "reprojection"
+
     def _ba_backend(self) -> str:
         b = self.cfg.ba_backend
-        if b == "auto":   # the stereo engine's default backend
-            b = "reprojection"
+        if b == "auto":
+            b = self._default_ba_backend
         if self.cfg.distribute_ba:
             raise NotImplementedError(
                 "distribute_ba is not ported yet (ROADMAP.md Queue 1, "
                 "'Distributed BA')"
             )
-        if b == "photometric":
-            raise NotImplementedError(
-                "the photometric BA backend is not ported yet (ROADMAP.md "
-                "Queue 1, 'Photometric BA')"
-            )
-        if b != "reprojection":
+        if b not in ("reprojection", "photometric"):
             raise ValueError(f"unknown ba_backend {b!r}")
         return b
 
@@ -396,14 +402,23 @@ class BaseVO:
 
     def _ba_program(self, m: map_state.MapState, cam_fixed, pose_slot: int, R0, t0):
         cfg = self.cfg
-        params = ba.BAParams(
-            iters=cfg.ba_iters,
-            huber=cfg.ba_huber_px / cfg.fx,
-            trunc=cfg.ba_trunc_px / cfg.fx,
-            num_fixed=0,
-        )
-        prob = map_state.as_ba_problem(m, self.intr)._replace(cam_fixed=cam_fixed)
-        out, info = ba.solve_impl(prob, params)
+        if self._ba_backend() == "photometric":
+            prob, intr_l = map_state.as_photo_ba_problem(m, self.intr, level=cfg.photo_ba_level)
+            params = ba_photometric.PhotoBAParams(
+                iters=cfg.ba_iters, huber=cfg.photo_ba_huber, num_fixed=0
+            )
+            out, info = ba_photometric.solve_impl(
+                prob._replace(cam_fixed=cam_fixed), intr_l, params
+            )
+        else:
+            params = ba.BAParams(
+                iters=cfg.ba_iters,
+                huber=cfg.ba_huber_px / cfg.fx,
+                trunc=cfg.ba_trunc_px / cfg.fx,
+                num_fixed=0,
+            )
+            prob = map_state.as_ba_problem(m, self.intr)._replace(cam_fixed=cam_fixed)
+            out, info = ba.solve_impl(prob, params)
         m_new = map_state.update_from_ba(m, out.R, out.t, out.points)
         m_out, R_out, t_out = self._gate_ba_adoption(
             m, m_new, out.R[pose_slot], out.t[pose_slot], R0, t0, cfg
@@ -476,6 +491,10 @@ class BaseVO:
             self._n_tracked_cache = n_tracked
         # Pipeline still filling: be optimistic.
         n_tracked = getattr(self, "_n_tracked_cache", self.cfg.num_features)
+        if self.debug_overlay:
+            # Stamped with the frame index so that overlay writers skip
+            # data from before a re-init or init frame.
+            self._last_track = (ok_align, refined, pyr[0], self.frame_idx)
         return ok_align, refined, n_tracked, pyr
 
     def close(self):
@@ -537,15 +556,7 @@ class StereoVO(BaseVO):
     def to_device(self, img_left, img_right):
         """Upload a stereo pair as uint8 tensors on the engine's device;
         process() accepts the returned pair directly."""
-        def conv(im):
-            if isinstance(im, torch.Tensor):
-                return im.to(self.device)
-            a = np.asarray(im)
-            if a.dtype != np.uint8:
-                a = np.clip(a, 0, 255).astype(np.uint8)
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-        return conv(img_left), conv(img_right)
+        return _upload(img_left, self.device), _upload(img_right, self.device)
 
     def process(self, img_left, img_right) -> FrameResult:
         cfg = self.cfg
@@ -650,6 +661,381 @@ class StereoVO(BaseVO):
             img_left, img_right, ok_align, refined, existing_obs is not None,
         )
         return slot
+
+
+class MonocularVO(BaseVO):
+    """Monocular VO: chained-LK two-view bootstrap, then direct/aligned
+    tracking, keyframes with LK-tracked triangulation and photometric
+    window BA (by default).
+
+    After `lost_reinit_after` consecutive fresh lost samples the engine
+    re-initializes: a new two-view bootstrap anchored at the current pose,
+    its scale tied to the dying segment by a depth-continuity and a
+    speed-continuity prior (`blend_recovery_scale`), with constant-
+    velocity dead reckoning through the blackout. Monocular scale is not
+    observable across a re-init; within a segment the two frozen gauge
+    cameras of the window BA hold it.
+    """
+
+    _default_ba_backend = "photometric"
+
+    def __init__(self, config: VOConfig, device):
+        super().__init__(config, device)
+        self.state = "init"
+        # (ref_pyr, ref_kps, chained_cur_kps, mask, ref_frame_idx)
+        self.init_ref = None
+        # World->cam pose of the init segment's reference camera.
+        self.init_base = (self.R, self.t)
+        self.num_reinits = 0
+
+    def to_device(self, img):
+        """Upload a frame as a uint8 tensor on the engine's device."""
+        return _upload(img, self.device)
+
+    def process(self, img) -> FrameResult:
+        cfg = self.cfg
+        self.frame_idx += 1
+        img = self.to_device(img)
+
+        if self.state == "init":
+            pyr = pyramid.build_pyramid(img.to(torch.float32), cfg.pyramid_levels)
+            self._dead_reckon()
+            self._try_initialize(pyr)
+        else:
+            ok_align, refined, n_tracked, pyr = self._track_landmarks(img)
+            if self._update_lost(n_tracked):
+                self._reinitialize(pyr)
+                self._record(num_tracked=n_tracked, num_landmarks=0,
+                             is_keyframe=False, state="init")
+                self.last_pyr = pyr
+                return self.results[-1]
+            is_kf = self._should_insert_keyframe(n_tracked)
+            if is_kf:
+                self._insert_mono_keyframe(pyr, ok_align, refined)
+                self.last_kf_frame = self.frame_idx
+                if cfg.run_ba and len(self.kf_order) >= 2:
+                    # Two frozen gauge cameras; moves self.R / self.t to
+                    # the adjusted newest-keyframe pose.
+                    self._run_window_ba(self.kf_order[:2])
+                self._refresh_templates(self.kf_order[-1])
+                self._post_keyframe(self.kf_order[-1], pyr)
+            self.last_pyr = pyr
+            self._record(
+                num_tracked=n_tracked,
+                num_landmarks=getattr(self, "_n_points_cache", 0),
+                is_keyframe=is_kf,
+                state=self.state,
+            )
+            return self.results[-1]
+
+        self.last_pyr = pyr
+        self._record(
+            num_tracked=0,
+            num_landmarks=int(self.map.num_points),   # a host read, as the reference's
+            is_keyframe=self.state == "tracking",
+            state="init",
+        )
+        return self.results[-1]
+
+    def _next_kf_slot(self) -> int:
+        """A free slot, or the oldest one evicted from the map."""
+        evict = len(self.kf_order) >= self.cfg.max_keyframes
+        slot = self._next_kf_slot_peek()
+        if evict:
+            self.map = map_state.evict_keyframe(self.map, slot)
+        return slot
+
+    def _reinitialize(self, pyr):
+        """Drop the map and bootstrap a new segment at the current pose."""
+        cfg = self.cfg
+        self._last_track = None   # overlay data of the old segment is stale
+        # Scale priors for the new segment (see _try_initialize): the
+        # camera's speed and the visible scene's depth are continuous
+        # through a short loss.
+        self._scale_prior = self._recent_motion()[0]
+        self._depth_prior = self._map_median_depth()
+        # Constant-velocity dead reckoning through the blackout.
+        self._dr_fwd = self._recent_fwd()
+        self.map = map_state.empty(
+            cfg.max_keyframes, cfg.max_landmarks, (cfg.height, cfg.width),
+            cfg.pyramid_levels, device=self.device,
+        )
+        self.kf_order = []
+        self.state = "init"
+        self.init_base = (self.R, self.t)
+        self.prev_R, self.prev_t = self.R, self.t   # zero velocity
+        # Velocity filter: carry the pre-loss per-frame increment when one
+        # exists (it also drives _dead_reckon), else reset.
+        if self._dr_fwd is not None:
+            R_f, t_f = (torch.from_numpy(a).to(self.device) for a in self._dr_fwd)
+            self.vel_xi = se3.se3_log(R_f, t_f)
+        else:
+            self.vel_xi = torch.zeros(6, dtype=torch.float32, device=self.device)
+        self.init_ref = None
+        self.num_reinits += 1
+        # SLAM layers treat the post-reinit odometry edge as dead reckoning.
+        self._last_recovery_frame = self.frame_idx
+        self._try_initialize(pyr)
+
+    def _map_median_depth(self):
+        """Median camera-frame depth of the map's valid landmarks, or None
+        if the map is empty or degenerate. One host read; re-init only.
+        The median is `nanquantile(., 0.5)`, as `jnp.nanmedian` (the mean
+        of the two middle values)."""
+        m = self.map
+        p_cam = se3.transform(self.R, self.t, m.points)
+        z = torch.where(m.point_mask, p_cam[:, 2], float("nan"))
+        med = float(torch.nanquantile(z, 0.5))
+        if not np.isfinite(med) or med <= 1e-6:
+            return None
+        return med
+
+    def _recent_fwd(self):
+        """Pre-loss per-frame forward increment T_fwd = T_k o T_{k-1}^-1
+        (world->cam) from the recorded healthy poses: componentwise-median
+        translation over the last adjacent healthy pairs, rotation from the
+        newest pair. None with too little history or when the increment
+        fails the motion-model clamps. One stacked host pull."""
+        healthy = [
+            (i, r) for i, r in enumerate(self.results)
+            if r.num_tracked >= self.cfg.min_tracked_points
+        ]
+        h = healthy[-9:]
+        pairs = [(a[1], b[1]) for a, b in zip(h, h[1:]) if b[0] - a[0] == 1]
+        if not pairs:
+            return None
+        R, t = _pull_poses([r for p in pairs for r in p])
+        Ra, ta = R[0::2], t[0::2]
+        Rb, tb = R[1::2], t[1::2]
+        R_f = np.einsum("nij,nkj->nik", Rb, Ra)        # Rb @ Ra^T
+        t_f = tb - np.einsum("nij,nj->ni", R_f, ta)
+        t_med = np.median(t_f, axis=0).astype(np.float32)
+        R_last = R_f[-1].astype(np.float32)
+        if not (np.all(np.isfinite(t_med)) and np.all(np.isfinite(R_last))):
+            return None
+        ang = np.arccos(np.clip((np.trace(R_last) - 1) / 2, -1, 1))
+        if (np.linalg.norm(t_med) > self.cfg.max_step_translation
+                or ang > self.cfg.max_step_rotation):
+            return None
+        return R_last, t_med
+
+    def _dead_reckon(self):
+        """Advance the pose by the pre-loss increment during a post-re-init
+        blackout (no-op otherwise); no host read."""
+        dr = getattr(self, "_dr_fwd", None)
+        if dr is None or self.num_reinits == 0:
+            return
+        R_f, t_f = (torch.from_numpy(a).to(self.device) for a in dr)
+        self.R = R_f @ self.R
+        self.t = R_f @ self.t + t_f
+
+    def _try_initialize(self, pyr):
+        """Two-view bootstrap with chained correspondence tracking.
+
+        Init features are tracked frame to frame from the reference while
+        the ref<->current correspondence set spans the accumulated
+        baseline. The chain reseeds when it dies (fewer than
+        min_init_tracks tracks) and otherwise at 4x reinitialize_after.
+        The gates are read on the host, as the reference reads them.
+        """
+        cfg = self.cfg
+        ir = self.init_ref
+        reseed = ir is None or (self.frame_idx - ir[4]) >= 4 * cfg.reinitialize_after
+        if not reseed:
+            ref_pyr, ref_kps, cur_kps, mask, ref_idx = ir
+            kp2, _, ok = lk.track(self.last_pyr, pyr, cur_kps, mask)
+            n_tracks = int(torch.sum(ok))
+            if n_tracks < cfg.min_init_tracks:
+                reseed = True
+            else:
+                self.init_ref = (ref_pyr, ref_kps, kp2, ok, ref_idx)
+        if reseed:
+            uv, _, mask = self._detect(pyr)
+            self.init_ref = (pyr, uv, uv, mask, self.frame_idx)
+            # Anchor the segment at the reference frame's current pose.
+            self.init_base = (self.R, self.t)
+            return
+
+        x1 = cam_mod.normalize(ref_kps, self.intr)
+        x2 = cam_mod.normalize(kp2, self.intr)
+        params = twoview.TwoViewParams(
+            focal=cfg.fx,
+            projection_error_thresh=cfg.init_projection_error_px,
+            parallax_thresh_deg=cfg.init_parallax_deg,
+            disparity_squared_thresh=cfg.disparity_squared_thresh,
+        )
+        res = twoview.initialize(self.generator, x1, x2, ok, params)
+        disp_ok, n_inl, med_par = torch.stack([
+            res.disparity_ok.to(torch.float32), res.num_inliers.to(torch.float32),
+            res.median_parallax_deg,
+        ]).tolist()
+        if not disp_ok:
+            return
+        # Rotation-compensated baseline gate, relaxing with init age down
+        # to 1/6 of the configured parallax.
+        age = max(self.frame_idx - ref_idx, 1)
+        eff_par = cfg.init_min_parallax_deg * min(1.0, cfg.reinitialize_after / age)
+        eff_par = max(eff_par, cfg.init_min_parallax_deg / 6.0)
+        if med_par < eff_par:
+            return
+        n_inl = int(n_inl)
+        # The inlier-ratio gate relaxes with age too (chained LK drifts),
+        # floored at 0.6; the absolute count still applies.
+        ratio_eff = max(0.6, cfg.min_init_inlier_ratio * min(1.0, cfg.reinitialize_after / age))
+        if n_inl < cfg.min_init_tracks or n_inl < ratio_eff * n_tracks:
+            return
+        # Accept: promote both frames to keyframes. Two-view works in the
+        # reference camera's frame; compose with the segment base pose.
+        speed_prior = getattr(self, "_scale_prior", None)
+        depth_prior = getattr(self, "_depth_prior", None)
+        if self.num_reinits > 0 and (depth_prior is not None or speed_prior is not None):
+            # Depth continuity (robust to the two-view ratio error, wrong
+            # across occlusions) cross-checked with speed continuity.
+            s_d = None
+            if depth_prior is not None:
+                z = res.points[:, 2].cpu().numpy()
+                inl_np = res.inliers.cpu().numpy()
+                med_boot = float(np.median(z[inl_np])) if inl_np.any() else 0.0
+                if med_boot > 1e-9:
+                    s_d = depth_prior / med_boot
+            s_s = None
+            if speed_prior is not None:
+                gap = max(1, self.frame_idx - ref_idx)
+                meas = float(np.linalg.norm(res.t.cpu().numpy()))
+                if meas > 1e-9:
+                    s_s = speed_prior * gap / meas
+            s = blend_recovery_scale(s_d, s_s)
+            if s is not None:
+                res = res._replace(t=res.t * s, points=res.points * s)
+            self._scale_prior = None
+            self._depth_prior = None
+        Rb, tb = self.init_base
+        R1, t1 = se3.compose(res.R, res.t, Rb, tb)
+        points_w = se3.transform(*se3.inverse(Rb, tb), res.points)
+        slot0 = self._next_kf_slot()
+        self.map = map_state.insert_keyframe(self.map, slot0, Rb, tb, ref_idx, ref_pyr)
+        self.kf_order.append(slot0)
+        slot1 = self._next_kf_slot()
+        self.map = map_state.insert_keyframe(self.map, slot1, R1, t1, self.frame_idx, pyr)
+        self.kf_order.append(slot1)
+        self.map, slots, ok_alloc = map_state.allocate_landmarks(self.map, points_w, res.inliers)
+        self.map = map_state.set_observations(self.map, slot0, slots, ref_kps, ok_alloc)
+        self.map = map_state.set_observations(self.map, slot1, slots, kp2, ok_alloc)
+        self.R, self.t = R1, t1
+        self.prev_R, self.prev_t = Rb, tb
+        # Velocity seed: the bootstrap spans `gap` chained frames.
+        gap_f = float(max(1, self.frame_idx - ref_idx))
+        self.vel_xi = se3.se3_log(*se3.relative(R1, t1, Rb, tb)) / gap_f
+        self.last_kf_frame = self.frame_idx
+        self._refresh_templates(slot1)
+        self.state = "tracking"
+        self._post_keyframe(slot1, pyr)
+
+    def _mono_kf_program(self, m, slot: int, do_evict: bool, prev_slot: int, R, t,
+                         frame_id: int, pyr, ok_align, refined):
+        """Keyframe insertion: evict, insert with the tracked observations,
+        FAST in the previous keyframe, LK to the new frame, two-view
+        triangulation with reprojection and parallax gates, far points for
+        low-parallax tracks, landmark allocation."""
+        cfg = self.cfg
+        intr = self.intr
+        if do_evict:
+            m = map_state.evict_keyframe(m, slot)
+        prev_R = m.kf_R[prev_slot]
+        prev_t = m.kf_t[prev_slot]
+        prev_pyr = tuple(lvl[prev_slot] for lvl in m.kf_pyr)
+        m = map_state.insert_keyframe(m, slot, R, t, frame_id, pyr)
+        L = m.points.shape[0]
+        m = map_state.set_observations(
+            m, slot, torch.arange(L, device=self.device), refined, ok_align
+        )
+        # New landmarks: detect in the previous keyframe, LK-track to the
+        # current frame, triangulate with the two keyframe poses.
+        uv_prev, _, det_mask = self._detect(prev_pyr)
+        det_mask = det_mask & ~_near_existing(
+            uv_prev, m.obs_uv[prev_slot], m.obs_mask[prev_slot], 8.0
+        )
+        uv_cur, _, ok_trk = lk.track(prev_pyr, pyr, uv_prev, det_mask)
+        x1 = cam_mod.normalize(uv_prev, intr)
+        x2 = cam_mod.normalize(uv_cur, intr)
+        pts, d1, d2 = triangulation.triangulate(x1, x2, prev_R, prev_t, R, t)
+        e1 = triangulation.reprojection_error(pts, x1, prev_R, prev_t)
+        e2 = triangulation.reprojection_error(pts, x2, R, t)
+        # Below the parallax floor depth is unobservable: such tracks
+        # become far points instead.
+        cosang = triangulation.parallax_cos(pts, prev_R, prev_t, R, t)
+        enough_parallax = cosang < float(
+            np.cos(np.deg2rad(np.float32(cfg.min_triangulation_parallax_deg)))
+        )
+        good = (
+            ok_trk
+            & (d1 > 0.05)
+            & (d2 > 0.05)
+            & enough_parallax
+            & (e1 * cfg.fx < cfg.ransac_threshold_px)
+            & (e2 * cfg.fx < cfg.ransac_threshold_px)
+        )
+        # Far points: twice the 90th-percentile well-triangulated depth
+        # along the previous keyframe's ray, or 4x the map's median depth
+        # when this keyframe triangulated nothing.
+        nan = float("nan")
+        d_far = 2.0 * torch.nanquantile(torch.where(good, d1, nan), 0.9)
+        p_prev_cam = torch.einsum("ij,nj->ni", prev_R, m.points) + prev_t
+        d_map = torch.nanquantile(torch.where(m.point_mask, p_prev_cam[:, 2], nan), 0.5)
+        d_far = torch.where(torch.isfinite(d_far), d_far, 4.0 * d_map)
+        prev_c = -prev_R.T @ prev_t
+        rays_w = torch.cat([x1, torch.ones_like(x1[:, :1])], dim=-1) @ prev_R
+        pts_far = prev_c[None, :] + d_far * rays_w
+        e2_far = triangulation.reprojection_error(pts_far, x2, R, t)
+        far_ok = (
+            ok_trk
+            & ~enough_parallax
+            & torch.isfinite(d_far)
+            & (e2_far * cfg.fx < cfg.ransac_threshold_px)
+        )
+        pts = torch.where(enough_parallax[:, None], pts, pts_far)
+        m, slots, ok_alloc = map_state.allocate_landmarks(m, pts, good | far_ok)
+        m = map_state.set_observations(m, prev_slot, slots, uv_prev, ok_alloc)
+        return map_state.set_observations(m, slot, slots, uv_cur, ok_alloc)
+
+    def _insert_mono_keyframe(self, pyr, ok_align, refined):
+        cfg = self.cfg
+        prev_slot = self.kf_order[-1]
+        evict = len(self.kf_order) >= cfg.max_keyframes
+        slot = self._next_kf_slot_peek()
+        self.kf_order.append(slot)
+        self.map = self._mono_kf_program(
+            self.map, slot, evict, prev_slot, self.R, self.t, self.frame_idx, pyr,
+            ok_align, refined,
+        )
+
+
+def blend_recovery_scale(s_d, s_s, agree=2.5, lo=0.05, hi=20.0):
+    """Cross-check the two recovery scale anchors of a re-init.
+
+    s_d: depth-continuity estimate (robust to the two-view ratio error,
+    wrong across occlusions); s_s: speed-continuity estimate (holds
+    through occlusions, carries the ratio error). Agreement within
+    `agree`x picks depth, disagreement speed; either may be None.
+    Returns a clipped float or None."""
+    if s_d is not None and s_s is not None:
+        ratio = s_d / s_s
+        s = s_d if 1.0 / agree < ratio < agree else s_s
+    else:
+        s = s_d if s_d is not None else s_s
+    if s is None:
+        return None
+    return float(np.clip(s, lo, hi))
+
+
+def _upload(im, device):
+    """An image as a uint8 tensor on `device` (a tensor is only moved)."""
+    if isinstance(im, torch.Tensor):
+        return im.to(device)
+    a = np.asarray(im)
+    if a.dtype != np.uint8:
+        a = np.clip(a, 0, 255).astype(np.uint8)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def _pull_poses(results):

@@ -26,9 +26,13 @@ from viso_tpu_torch.tools import bench_extract
 
 H, W = 376, 1240            # the bench headline (StereoVO)
 SLAM_H, SLAM_W = 184, 616   # the 500-frame loop SLAM cell
+CLI_H, CLI_W = 240, 320     # `viso_tpu_torch.run`'s synthetic sequence
 
-# (name, image shape, window (h, w), N, indexed) -- every call the
-# headline's stereo VO path and the SLAM cell make, with its caller.
+# (name, image shape, window (h, w), N, source) -- every call the
+# headline's stereo VO path, the SLAM cell, the mono cell and the CLI's
+# synthetic runs make, with its caller. source: False for one image, "two" for the two-source entry
+# (a stack and the current image, the last image of the case's stack),
+# "stack" for the indexed entry over a stack.
 MAIN_PATH_CASES = [
     # direct.py build_level_template (templates, every keyframe): win 10
     ("templates L0 win10", (H, W), (10, 10), 1024, False),
@@ -43,8 +47,8 @@ MAIN_PATH_CASES = [
     # align.py _align_level (track, every frame): two sources, the
     # 8-keyframe stack and the current image, 1024 windows each (the last
     # image of the (9, h, w) case is the current image)
-    ("track align L1 idx win16", (9, H // 2, W // 2), (16, 16), 2048, True),
-    ("track align L0 idx win16", (9, H, W), (16, 16), 2048, True),
+    ("track align L1 idx win16", (9, H // 2, W // 2), (16, 16), 2048, "two"),
+    ("track align L0 idx win16", (9, H, W), (16, 16), 2048, "two"),
     # stereo.py match (stereo_kf, every keyframe)
     ("stereo left win12", (H, W), (12, 12), 504, False),
     ("stereo right rect 12x140", (H, W), (12, 140), 504, False),
@@ -63,10 +67,42 @@ MAIN_PATH_CASES = [
     ("slam track direct L1 win24", (SLAM_H // 2, SLAM_W // 2), (24, 24), 1024, False),
     ("slam track direct L2 win24", (SLAM_H // 4, SLAM_W // 4), (24, 24), 256, False),
     ("slam track direct L3 win23", (SLAM_H // 8, SLAM_W // 8), (23, 23), 256, False),
-    ("slam track align L1 idx win16", (9, SLAM_H // 2, SLAM_W // 2), (16, 16), 2048, True),
-    ("slam track align L0 idx win16", (9, SLAM_H, SLAM_W), (16, 16), 2048, True),
+    ("slam track align L1 idx win16", (9, SLAM_H // 2, SLAM_W // 2), (16, 16), 2048, "two"),
+    ("slam track align L0 idx win16", (9, SLAM_H, SLAM_W), (16, 16), 2048, "two"),
     ("slam stereo left win12", (SLAM_H, SLAM_W), (12, 12), 256, False),
     ("slam stereo right rect 12x108", (SLAM_H, SLAM_W), (12, 108), 256, False),
+    # The mono cell (184x616, 256 features, 1024 landmarks, 8 keyframes).
+    # lk.py _single_level (every keyframe and init frame): the reference
+    # and current level images as two sources, 256 windows each of
+    # 4*half+8 = 24 px, clipped to the 23 px of level 3.
+    ("mono lk L3 win23", (2, SLAM_H // 8, SLAM_W // 8), (23, 23), 512, "two"),
+    ("mono lk L2 win24", (2, SLAM_H // 4, SLAM_W // 4), (24, 24), 512, "two"),
+    ("mono lk L1 win24", (2, SLAM_H // 2, SLAM_W // 2), (24, 24), 512, "two"),
+    ("mono lk L0 win24", (2, SLAM_H, SLAM_W), (24, 24), 512, "two"),
+    # ba_photometric.py _precompute_windows (every keyframe's window BA):
+    # one 16x16 window per (keyframe, landmark) from the level-1 stack.
+    ("mono photo-BA win16", (8, SLAM_H // 2, SLAM_W // 2), (16, 16), 8 * 1024, "stack"),
+    # The CLI's synthetic sequence (run.py defaults: 240x320, 512
+    # features, 2048 landmarks, 8 keyframes), logged from its stereo, slam
+    # and mono runs: stereo matches 504 features, LK tracks 504 per source.
+    ("cli templates L0 win10", (CLI_H, CLI_W), (10, 10), 1024, False),
+    ("cli templates L1 win10", (CLI_H // 2, CLI_W // 2), (10, 10), 1024, False),
+    ("cli templates L2 win10", (CLI_H // 4, CLI_W // 4), (10, 10), 256, False),
+    ("cli templates L3 win10", (CLI_H // 8, CLI_W // 8), (10, 10), 256, False),
+    ("cli track direct L0 win16", (CLI_H, CLI_W), (16, 16), 1024, False),
+    ("cli track direct L1 win24", (CLI_H // 2, CLI_W // 2), (24, 24), 1024, False),
+    ("cli track direct L2 win24", (CLI_H // 4, CLI_W // 4), (24, 24), 256, False),
+    ("cli track direct L3 win24", (CLI_H // 8, CLI_W // 8), (24, 24), 256, False),
+    ("cli track align L1 idx win16", (9, CLI_H // 2, CLI_W // 2), (16, 16), 2048, "two"),
+    ("cli track align L0 idx win16", (9, CLI_H, CLI_W), (16, 16), 2048, "two"),
+    ("cli stereo left win12", (CLI_H, CLI_W), (12, 12), 504, False),
+    ("cli stereo right rect 12x140", (CLI_H, CLI_W), (12, 140), 504, False),
+    ("cli descriptors win34", (CLI_H, CLI_W), (34, 34), 256, False),
+    ("cli lk L3 win24", (2, CLI_H // 8, CLI_W // 8), (24, 24), 1008, "two"),
+    ("cli lk L2 win24", (2, CLI_H // 4, CLI_W // 4), (24, 24), 1008, "two"),
+    ("cli lk L1 win24", (2, CLI_H // 2, CLI_W // 2), (24, 24), 1008, "two"),
+    ("cli lk L0 win24", (2, CLI_H, CLI_W), (24, 24), 1008, "two"),
+    ("cli photo-BA win16", (8, CLI_H // 2, CLI_W // 2), (16, 16), 8 * 2048, "stack"),
 ]
 TRACK_CASES = [c[0] for c in MAIN_PATH_CASES if c[0].startswith("track")]
 
