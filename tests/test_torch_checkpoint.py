@@ -1,13 +1,14 @@
 """Checkpoints of the port (viso_tpu_torch.utils.checkpoint) against
 viso_tpu's, on the CPU: the two packages share one .npz format, so each
-loads what the other writes, bit for bit; and a StereoSLAM saved mid-run
-resumes and closes its loop against places stored before the cut."""
+loads what the other writes, bit for bit; a StereoSLAM saved mid-run
+resumes and closes its loop against places stored before the cut; a
+MonoSLAM saved mid-run resumes with its Sim(3) graph and keeps tracking.
+(A mono SLAM checkpoint crossing packages: tests/test_torch_mono_slam.py.)"""
 
 import os
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from viso_tpu.mapping import map_state as j_ms
@@ -144,8 +145,48 @@ def test_slam_checkpoint_resume(tmp_path):
     assert ate < 1.0, ate
 
 
-def test_monocular_checkpoint_is_not_ported(tmp_path):
-    path = str(tmp_path / "mono.npz")
-    t_ckpt._write(path, {"_meta": t_ckpt._meta_array({"version": 1, "kind": "mono"})})
-    with pytest.raises(NotImplementedError, match="Sim\\(3\\)"):
-        t_ckpt.load_slam(path, VOConfig(**CFG), LoopParams(**LOOP), device="cpu")
+def test_mono_slam_checkpoint_resume(tmp_path):
+    """tests/test_slam.py::test_mono_slam_checkpoint_roundtrip on the port:
+    save_slam / load_slam round-trip the MonoSLAM state (the Sim(3)
+    graph's node scales and edge scale ratios; `kind: mono` restores a
+    MonoSLAM) and the resumed engine keeps tracking to the end of the
+    70-frame orbit with finite poses."""
+    from viso_tpu_torch.slam.mono_full import MonoSLAM
+
+    n, cut = 70, 45
+    room = synthetic.room_scene(np.random.default_rng(11), tex_size=512, half=6.0)
+    intr = camera.Intrinsics.create(**INTR)
+    Rs, ts = synthetic.orbit_trajectory(n, radius=2.0, total_angle=1.5 * np.pi)
+    frames = [room.render(intr, R, t, H, W)[0] for R, t in zip(Rs, ts)]
+    cfg = VOConfig(height=H, width=W, max_keyframes=6, max_landmarks=768, num_features=192,
+                   detect_grid=(4, 6), fast_threshold=10.0, kf_min_gap=1, kf_max_gap=3,
+                   kf_min_visible_frac=0.6, min_init_tracks=25, disparity_squared_thresh=25.0,
+                   **INTR)
+    lp = LoopParams(**LOOP)
+    slam = MonoSLAM(cfg, lp, device="cpu")
+    for img in frames[:cut]:
+        slam.process(img)
+    path = str(tmp_path / "mono_slam.npz")
+    t_ckpt.save_slam(path, slam, extra={"frame": cut - 1})
+    nodes, edges, scales = len(slam.pg_raw_R), list(slam.pg_edges), list(slam.pg_s)
+    slam.close()
+    assert nodes >= 10 and slam.state == "tracking"
+
+    slam2, extra = t_ckpt.load_slam(path, cfg, lp, device="cpu")
+    assert isinstance(slam2, MonoSLAM) and extra == {"frame": cut - 1}
+    assert len(slam2.pg_raw_R) == slam2._next_node == nodes
+    np.testing.assert_array_equal(slam2.pg_s, np.float32(scales))
+    assert len(slam2.pg_edges) == len(edges)
+    for e_old, e_new in zip(edges, slam2.pg_edges):
+        assert e_old[:2] == e_new[:2] and len(e_new) == 6
+        assert abs(e_old[2] - e_new[2]) < 1e-6   # s_ij round-trips
+        np.testing.assert_array_equal(e_new[3], e_old[3])
+    for img in frames[cut:]:
+        slam2.process(img)
+    slam2.join()
+    assert slam2.hook_errors == []
+    R_all, t_all = slam2.trajectory()
+    slam2.close()
+    assert len(R_all) == n - cut
+    assert np.all(np.isfinite(R_all)) and np.all(np.isfinite(t_all))
+    assert len(slam2.pg_raw_R) > nodes      # new nodes joined the restored graph

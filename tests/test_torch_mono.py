@@ -242,3 +242,48 @@ def test_mono_cell_tool(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         mono_cell.main(["--frames", "2"])
+
+
+def test_mono_cell_tool_slam(capsys):
+    """`tools/mono_cell.py --slam` (chip_smoke's phase 9 cell over seeds):
+    its configuration is bench.py's mono SLAM configuration field by field
+    (phase 7's with FAST 6; LoopParams(min_inliers=40,
+    max_correction_m=4.0)), its frames the first frames of the 500-frame
+    orbit, and it runs MonoSLAM on the CPU when asked (6 frames here),
+    printing one JSON line."""
+    import json
+
+    from viso_tpu.slam.loop_closure import LoopParams as JLoopParams
+    from viso_tpu_torch.tools import mono_cell
+
+    half = dict(fx=718.856 / 2, fy=718.856 / 2, cx=607.1928 / 2, cy=185.2157 / 2)
+    ref = JVOConfig(
+        height=184, width=616, **half, num_features=256, max_landmarks=1024,
+        detect_grid=(4, 8), fast_threshold=6.0, kf_max_gap=8, kf_min_gap=2,
+        stats_max_lag=2, stats_hard_lag=4, stats_deterministic=True,
+        kf_min_visible_frac=0.45, disparity_squared_thresh=25.0,
+    )
+    cfg = mono_cell.slam_config()
+    for field in VOConfig.__dataclass_fields__:
+        assert getattr(cfg, field) == getattr(ref, field), field
+    lp, ref_lp = mono_cell.slam_loop_params(), JLoopParams(min_inliers=40, max_correction_m=4.0)
+    for field in ref_lp.__dataclass_fields__:
+        assert getattr(lp, field) == getattr(ref_lp, field), field
+    imgs, Rs, ts = mono_cell.render_orbit(3)
+    full_Rs, full_ts = j_syn.orbit_trajectory(500, radius=2.5, total_angle=4 * np.pi)
+    np.testing.assert_array_equal(Rs, full_Rs[:3])
+    assert imgs[0].dtype == np.uint8 and imgs[0].shape == (184, 616)
+    # The left images of chip_smoke's stereo render of the orbit (phase 6),
+    # which phase 9 runs on, are these frames bit for bit.
+    from viso_tpu_torch.data import synthetic
+
+    scene, intr, _, _ = mono_cell.orbit()
+    for k in range(3):
+        il = synthetic.make_stereo_pair(scene, intr, Rs[k], ts[k], 184, 616, baseline=0.537)[0]
+        np.testing.assert_array_equal(np.clip(il, 0, 255).astype(np.uint8), imgs[k])
+    assert mono_cell.main(["--slam", "--frames", "6", "--seeds", "1", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["cell"] == "mono_slam" and out["device"] == "cpu" and out["frames"] == 6
+    run = out["runs"][0]
+    assert run["seed"] == 1 and run["hook_errors"] == 0 and run["loops"] == []
+    assert run["nodes"] >= 1 and np.isfinite(run["ate_m"]) and run["s_min"] == 1.0

@@ -1,7 +1,7 @@
 """The port's CLI runner (`python -m viso_tpu_torch.run`) on the synthetic
 dataset with `--device cpu`, under tests/test_run_cli.py's bounds and
 artifacts; its refusals (no CUDA device, modes not ported yet); plots
-skipped where matplotlib is absent. Every K1 call the three modes make is
+skipped where matplotlib is absent. Every K1 call the four modes make is
 at a shape of `tools/bench_k1.MAIN_PATH_CASES`, where chip_smoke.py holds
 the kernel against its plain version."""
 
@@ -109,6 +109,29 @@ def test_run_cli_mono_mode(tmp_path, k1_calls):
     assert sum(src == "two" and shape[0] == 2 for shape, _, _, src in k1_calls) == 4   # LK
 
 
+def test_run_cli_mono_slam_mode(tmp_path, k1_calls):
+    """tests/test_run_cli.py::test_run_cli_mono_slam_mode on the port: the
+    Sim(3) SLAM layer end to end on the synthetic sequence (init disparity
+    gate lowered to 5 px by the runner, one image per frame), a
+    scale-aligned ATE below 2 m, with a checkpoint every 8 frames that
+    resumes as a MonoSLAM; K1 (the loop digest's descriptor windows
+    included) only at shapes of the case table."""
+    out = str(tmp_path / "out_mono_slam")
+    summary = run.main(["--dataset", "synthetic", "--mode", "mono-slam", "--max-frames", "14",
+                        "--checkpoint-every", "8", "--out-dir", out, "--device", "cpu"])
+    assert np.isfinite(summary["ate_rmse_m"]) and summary["ate_rmse_m"] < 2.0
+    for name in ("trajectory.txt", "trajectory.png", "summary.json", "slam.npz"):
+        assert os.path.exists(os.path.join(out, name)), name
+    states = [r["state"] for r in _lines(os.path.join(out, "frames.jsonl"))]
+    assert len(states) == 14 and states[-1] == "tracking", states
+    _in_case_table(k1_calls)
+    assert ((240, 320), (34, 34), 256, False) in k1_calls      # the loop digest
+    resumed = run.main(["--dataset", "synthetic", "--mode", "mono-slam", "--max-frames", "3",
+                        "--resume", os.path.join(out, "slam.npz"),
+                        "--out-dir", str(tmp_path / "resumed"), "--device", "cpu"])
+    assert resumed["frames"] == 3
+
+
 def test_run_cli_without_matplotlib(tmp_path, monkeypatch):
     """Where matplotlib is not installed the two PNG plots are skipped and
     the summary says so; everything else is written."""
@@ -124,7 +147,6 @@ def test_run_cli_without_matplotlib(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv, err, match", [
-    (["--mode", "mono-slam"], NotImplementedError, "ROADMAP"),
     (["--mode", "stereo", "--distribute"], NotImplementedError, "ROADMAP"),
 ])
 def test_run_cli_unported_modes_raise(tmp_path, argv, err, match):

@@ -120,15 +120,21 @@ def test_gate_packed_identical(rng):
     assert accepted > 10 and rejected > 10
 
 
-def test_detect_fused_matches_reference_with_the_jax_draw():
-    """One detection on the same database and query: the packed vector
-    equals the JAX one (counts and slot exactly, the PnP pose to 1e-4)
-    when the port is handed the hypotheses the JAX key draws."""
+INTR_ARGS = (180.0, 180.0, 111.5, 79.5)
+THRESH = (4.0 / 180.0) ** 2
+
+
+def _detection_scene(sigma=1.0):
+    """Two databases holding the same six keyframes (identity poses), and a
+    query: entry 2 seen from a moved camera (Rq, tq), 10 % of its bits
+    flipped, a fifth of its keypoints replaced by outliers, shuffled. The
+    query keyframe's own landmarks (in keypoint order) and odometry pose
+    live in a segment `sigma` times the candidate's scale, with a tenth of
+    them unobserved."""
     rng = np.random.default_rng(5)
     nf = 64
     params = dict(capacity=8, num_features=nf, guard=1, min_matches=20, min_inliers=15)
     jdb, tdb = _two_dbs(params)
-    intr_args = (180.0, 180.0, 111.5, 79.5)
     entries = []
     for k in range(6):
         kps, _, _, desc = _entry(rng, nf)
@@ -139,8 +145,6 @@ def test_detect_fused_matches_reference_with_the_jax_draw():
         entries.append((pts, desc))
         jdb.add(None, kps, mask, pts, mask, R, t, k, desc=jnp.asarray(desc, jnp.bfloat16))
         tdb.add(None, kps, mask, pts, mask, R, t, k, desc=torch.from_numpy(desc).bfloat16())
-    # Query: entry 2 seen from a moved camera, 10 % of bits flipped, a
-    # fifth of the keypoints replaced by outliers.
     pts, desc = entries[2]
     from viso_tpu_torch.data.synthetic import so3_exp
     Rq, tq = so3_exp([0.02, -0.05, 0.01]), np.array([0.1, -0.05, 0.2], np.float32)
@@ -151,26 +155,46 @@ def test_detect_fused_matches_reference_with_the_jax_draw():
     desc_q = desc.copy()
     desc_q[rng.uniform(size=desc.shape) < 0.1] *= -1
     perm = rng.permutation(nf)
-    kps_q, desc_q = kps_q[perm], desc_q[perm]
-    mask_q = np.ones(nf, bool)
+    q = dict(kps=kps_q[perm], desc=desc_q[perm], mask=np.ones(nf, bool),
+             pts=(sigma * pts[perm]).astype(np.float32), pts_ok=rng.uniform(size=nf) > 0.1,
+             R=Rq.astype(np.float32), t=(sigma * tq).astype(np.float32))
+    return jdb, tdb, q, Rq
+
+
+def _jax_draw(key):
+    """The port's hypothesis draw replaced by the JAX key's."""
+    def draw(ok):
+        logits = jnp.where(jnp.asarray(ok.numpy()), 0.0, -jnp.inf)
+        return torch.from_numpy(np.array(jax.random.categorical(key, logits[None],
+                                                                shape=(512, 6))))
+    return draw
+
+
+def _query_args(q, pkg):
+    if pkg == "jax":
+        return (jnp.asarray(q["desc"], jnp.bfloat16), jnp.asarray(q["mask"]),
+                jnp.asarray(q["kps"]))
+    return (torch.from_numpy(q["desc"]).bfloat16(), torch.from_numpy(q["mask"]),
+            torch.from_numpy(q["kps"]))
+
+
+def test_detect_fused_matches_reference_with_the_jax_draw():
+    """One detection on the same database and query: the packed vector
+    equals the JAX one (counts and slot exactly, the PnP pose to 1e-4)
+    when the port is handed the hypotheses the JAX key draws."""
+    jdb, tdb, q, Rq = _detection_scene()
     key = jax.random.PRNGKey(3)
-    thresh = (4.0 / 180.0) ** 2
     eligible = jdb.insert_seq >= 0
     packed_j = np.asarray(j_lc._detect_fused_kernel(
-        jnp.asarray(desc_q, jnp.bfloat16), jnp.asarray(mask_q), jnp.asarray(kps_q),
+        *_query_args(q, "jax"),
         jdb.desc, jdb.desc_mask, jdb.points_w_dev, jdb.points_ok_dev, jnp.asarray(eligible),
-        j_cam.Intrinsics.create(*intr_args), jnp.asarray(thresh, jnp.float32),
+        j_cam.Intrinsics.create(*INTR_ARGS), jnp.asarray(THRESH, jnp.float32),
         jnp.asarray(20, jnp.int32), jnp.asarray(15, jnp.int32), key))
-
-    def jax_draw(ok):
-        logits = jnp.where(jnp.asarray(ok.numpy()), 0.0, -jnp.inf)
-        return torch.from_numpy(np.array(jax.random.categorical(key, logits[None], shape=(512, 6))))
-
     packed_t = t_lc._detect_fused_kernel(
-        torch.from_numpy(desc_q).bfloat16(), torch.from_numpy(mask_q), torch.from_numpy(kps_q),
+        *_query_args(q, "port"),
         tdb.desc, tdb.desc_mask, tdb.points_w_dev, tdb.points_ok_dev,
-        torch.from_numpy(eligible), t_cam.Intrinsics.create(*intr_args), thresh, 20, 15,
-        jax_draw).numpy()
+        torch.from_numpy(eligible), t_cam.Intrinsics.create(*INTR_ARGS), THRESH, 20, 15,
+        _jax_draw(key)).numpy()
     assert packed_t.shape == (16,)
     np.testing.assert_array_equal(packed_t[:4], packed_j[:4])
     assert packed_t[1] == 2 and packed_t[3] >= 40
@@ -183,14 +207,83 @@ def test_detect_fused_matches_reference_with_the_jax_draw():
     only = np.zeros(8, bool)
     only[5] = True
     packed_n = t_lc._detect_fused_kernel(
-        torch.from_numpy(desc_q).bfloat16(), torch.from_numpy(mask_q), torch.from_numpy(kps_q),
+        *_query_args(q, "port"),
         tdb.desc, tdb.desc_mask, tdb.points_w_dev, tdb.points_ok_dev, torch.from_numpy(only),
-        t_cam.Intrinsics.create(*intr_args), thresh, 20, 15,
+        t_cam.Intrinsics.create(*INTR_ARGS), THRESH, 20, 15,
         lambda ok: t_lc.pnp.draw_hypotheses(tdb.generator, ok)).numpy()
     assert packed_n[1] == 5 and packed_n[0] < 20 and packed_n[3] == 0
     np.testing.assert_array_equal(packed_n[4:], np.concatenate([np.eye(3).reshape(-1), np.zeros(3)]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdb.detect_fused_sim3()
+
+
+def _sim3_packed(jdb, tdb, q, eligible, key):
+    args_j = (*_query_args(q, "jax"), jnp.asarray(q["pts"]), jnp.asarray(q["pts_ok"]),
+              jnp.asarray(q["R"]), jnp.asarray(q["t"]))
+    packed_j = np.asarray(j_lc._detect_fused_sim3_kernel(
+        *args_j, jdb.desc, jdb.desc_mask, jdb.points_w_dev, jdb.points_ok_dev,
+        jnp.asarray(eligible), j_cam.Intrinsics.create(*INTR_ARGS),
+        jnp.asarray(THRESH, jnp.float32), jnp.asarray(20, jnp.int32),
+        jnp.asarray(15, jnp.int32), key))
+    args_t = (*_query_args(q, "port"), *(torch.from_numpy(q[k]) for k in ("pts", "pts_ok", "R",
+                                                                         "t")))
+    packed_t = t_lc._detect_fused_sim3_kernel(
+        *args_t, tdb.desc, tdb.desc_mask, tdb.points_w_dev, tdb.points_ok_dev,
+        torch.from_numpy(eligible), t_cam.Intrinsics.create(*INTR_ARGS), THRESH, 20, 15,
+        _jax_draw(key)).numpy()
+    return packed_j, packed_t
+
+
+def test_detect_fused_sim3_matches_reference_with_the_jax_draw():
+    """The monocular detection's packed 29 floats against JAX's with the
+    JAX draw replayed: the 16 of `detect_fused` as there, the Umeyama
+    similarity (s_g, R_g, t_g) to 1e-4. The query segment runs at 1.5x
+    the candidate's scale, so s_g ~ 1/1.5. Without a candidate the fit is
+    (1, I, 0), as the JAX package's skipped branch returns."""
+    jdb, tdb, q, Rq = _detection_scene(sigma=1.5)
+    key = jax.random.PRNGKey(3)
+    packed_j, packed_t = _sim3_packed(jdb, tdb, q, jdb.insert_seq >= 0, key)
+    assert packed_t.shape == (29,) and packed_t.dtype == np.float32
+    np.testing.assert_array_equal(packed_t[:4], packed_j[:4])
+    assert packed_t[1] == 2 and packed_t[3] >= 40
+    np.testing.assert_allclose(packed_t[4:], packed_j[4:], atol=1e-4)
+    assert abs(packed_t[16] - 1 / 1.5) < 0.02, packed_t[16]
+    np.testing.assert_allclose(packed_t[17:26].reshape(3, 3), np.eye(3), atol=2e-2)
+    only = np.zeros(8, bool)
+    only[5] = True
+    packed_j, packed_t = _sim3_packed(jdb, tdb, q, only, key)
+    np.testing.assert_array_equal(packed_t[:4], packed_j[:4])
+    assert packed_t[3] == 0
+    identity = np.concatenate([np.eye(3).reshape(-1), np.zeros(3)])
+    np.testing.assert_array_equal(packed_t[4:16], identity)
+    np.testing.assert_array_equal(packed_t[16:], np.concatenate([[1.0], identity]))
+    np.testing.assert_array_equal(packed_j[16:], packed_t[16:])
+
+
+@pytest.mark.parametrize("sigma, accepted", [(1.5, True), (3.0, False), (0.3, False)])
+def test_detect_fused_sim3_host_verdict_matches_reference(monkeypatch, sigma, accepted):
+    """`LoopDatabase.detect_fused_sim3` end to end (device pass, one copy,
+    the host gate, then the |log s_g| > 0.7 rejection) in both packages
+    with the JAX draw replayed: the same verdict, and an accepted
+    candidate's edge (the Umeyama G) to 1e-4. A 3x or 0.3x scale seam is
+    rejected as implausible."""
+    jdb, tdb, q, _ = _detection_scene(sigma=sigma)
+    _, sub = jax.random.split(jdb.key)
+    monkeypatch.setattr(t_lc.pnp, "draw_hypotheses", lambda gen, ok: _jax_draw(sub)(ok))
+    intr_j, intr_t = j_cam.Intrinsics.create(*INTR_ARGS), t_cam.Intrinsics.create(*INTR_ARGS)
+    desc_j, mask_j, kps_j = _query_args(q, "jax")
+    desc_t, mask_t, kps_t = _query_args(q, "port")
+    cj = jdb.detect_fused_sim3(desc_j, kps_j, mask_j, jnp.asarray(q["pts"]),
+                               jnp.asarray(q["pts_ok"]), q["R"], q["t"], intr_j,
+                               path_len=3.0, rot_len=0.2)
+    ct = tdb.detect_fused_sim3(desc_t, kps_t, mask_t, torch.from_numpy(q["pts"]),
+                               torch.from_numpy(q["pts_ok"]), q["R"], q["t"], intr_t,
+                               path_len=3.0, rot_len=0.2)
+    assert (ct is not None) == (cj is not None) == accepted
+    if accepted:
+        assert (ct.db_index, ct.matches, ct.inliers) == (cj.db_index, cj.matches, cj.inliers)
+        np.testing.assert_allclose(ct.s_rel, cj.s_rel, atol=1e-4)
+        np.testing.assert_allclose(ct.R_rel, cj.R_rel, atol=1e-4)
+        np.testing.assert_allclose(ct.t_rel, cj.t_rel, atol=1e-4)
+        assert ct.R_rel.dtype == np.float32 and abs(np.log(ct.s_rel * sigma)) < 0.03
 
 
 def test_recent_motion_and_seam_span_match_reference(rng):

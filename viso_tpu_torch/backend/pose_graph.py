@@ -11,6 +11,11 @@ nodes are fixed-capacity masked tensors; `solve_padded` pads a growing
 graph to power-of-two buckets as the JAX package does (here it only
 keeps shapes in a few sizes). The LM loop runs eagerly, with
 accept/reject on device values and no host sync.
+
+The linearization (`forward_jacobian`, `robust_weights`), both linear
+solvers (`dense_delta`, `pcg_delta`) and the LM loop
+(`levenberg_marquardt`) take any node DoF: the Sim(3) graph
+(`pose_graph_sim3.py`) runs on them with 7-DoF nodes.
 """
 
 from __future__ import annotations
@@ -80,28 +85,45 @@ def compute_cost(graph: PoseGraph, params: PGParams = PGParams()):
     return torch.sum(w * robust.huber_cost(r_norm, params.huber))
 
 
-def edge_jacobians(Ri, ti, Rj, tj, R_ij, t_ij):
-    """Residuals (E, 6) and their Jacobians (E, 6, 12) with respect to
-    the left perturbations [xi_i, xi_j] at zero.
-
-    Forward mode, one Jacobian column per basis direction of the 12
-    perturbation coordinates, pushed through all E edges at once
+def forward_jacobian(res, zeros):
+    """Residuals (E, m) of `res(xi)` at xi = `zeros` (E, n) and their
+    Jacobians (E, m, n): forward mode, one column per basis direction of
+    the n perturbation coordinates, pushed through all E edges at once
     (`torch.func.vmap` over `torch.func.jvp`). The edge axis stays a real
     batch axis on purpose: under a per-edge vmap every scalar of the
     residual is 0-dim, and forward-mode AD then promotes the tangent of a
     0-dim tensor plus a Python float to float64."""
-    E = Ri.shape[0]
-    zeros = torch.zeros((E, 12), dtype=Ri.dtype, device=Ri.device)
-
-    def res(xi2):
-        return _edge_residual_perturbed(xi2, Ri, ti, Rj, tj, R_ij, t_ij)
+    E, n = zeros.shape
 
     def column(v):
-        return torch.func.jvp(res, (zeros,), (v.expand(E, 12),))[1]
+        return torch.func.jvp(res, (zeros,), (v.expand(E, n),))[1]
 
-    basis = torch.eye(12, dtype=Ri.dtype, device=Ri.device)
-    J = torch.func.vmap(column)(basis)                  # (12, E, 6)
+    basis = torch.eye(n, dtype=zeros.dtype, device=zeros.device)
+    J = torch.func.vmap(column)(basis)                  # (n, E, m)
     return res(zeros), J.permute(1, 2, 0)
+
+
+def edge_jacobians(Ri, ti, Rj, tj, R_ij, t_ij):
+    """Residuals (E, 6) and their Jacobians (E, 6, 12) with respect to
+    the left perturbations [xi_i, xi_j] at zero."""
+    zeros = torch.zeros((Ri.shape[0], 12), dtype=Ri.dtype, device=Ri.device)
+    return forward_jacobian(
+        lambda xi2: _edge_residual_perturbed(xi2, Ri, ti, Rj, tj, R_ij, t_ij), zeros
+    )
+
+
+def robust_weights(r, graph, params):
+    """Per-edge information x mask x Huber weights, and the free-node mask
+    (node_mask minus the first `num_fixed` gauge nodes) as floats."""
+    r_norm = torch.linalg.norm(r, dim=-1)
+    w = (
+        graph.edge_weight
+        * graph.edge_mask
+        * robust.huber_weight(r_norm, params.huber)
+    )
+    K = graph.node_mask.shape[0]
+    free = graph.node_mask & (torch.arange(K, device=r.device) >= params.num_fixed)
+    return w, free.to(r.dtype)
 
 
 def _edge_system(R, t, graph: PoseGraph, params: PGParams):
@@ -109,79 +131,70 @@ def _edge_system(R, t, graph: PoseGraph, params: PGParams):
     weights and the gauge/free mask. Used by both linear solvers."""
     ei, ej = graph.edge_i, graph.edge_j
     r, J = edge_jacobians(R[ei], t[ei], R[ej], t[ej], graph.R_ij, graph.t_ij)
-    r_norm = torch.linalg.norm(r, dim=-1)
-    w = (
-        graph.edge_weight
-        * graph.edge_mask
-        * robust.huber_weight(r_norm, params.huber)
-    )
-    K = R.shape[0]
-    free = graph.node_mask & (torch.arange(K, device=R.device) >= params.num_fixed)
-    return r, J, w, free.to(R.dtype)
+    return (r, J) + robust_weights(r, graph, params)
 
 
-def _update(delta, R, t, f):
-    delta = torch.where(torch.isfinite(delta), delta, 0.0) * f[:, None]
-    return se3.left_update(delta, R, t)
-
-
-def _gn_step(R, t, graph: PoseGraph, lam, params: PGParams, K: int):
-    r, J, w, f = _edge_system(R, t, graph, params)
-    Ji = J[..., :6] * w[:, None, None]    # weighted (E, 6, 6) wrt node i
-    Jj = J[..., 6:] * w[:, None, None]
-    ei, ej = graph.edge_i, graph.edge_j
-    # Assemble the dense block system with scatter-adds.
-    H = torch.zeros((K, K, 6, 6), dtype=R.dtype, device=R.device)
-    b = torch.zeros((K, 6), dtype=R.dtype, device=R.device)
-    H.index_put_((ei, ei), torch.einsum("eai,eaj->eij", Ji, J[..., :6]), accumulate=True)
-    H.index_put_((ej, ej), torch.einsum("eai,eaj->eij", Jj, J[..., 6:]), accumulate=True)
-    H.index_put_((ei, ej), torch.einsum("eai,eaj->eij", Ji, J[..., 6:]), accumulate=True)
-    H.index_put_((ej, ei), torch.einsum("eai,eaj->eij", Jj, J[..., :6]), accumulate=True)
+def dense_delta(r, J, w, f, lam, ei, ej, K: int):
+    """LM step of a graph with d-DoF nodes (J: (E, m, 2d)) from the dense
+    (dK x dK) damped normal equations, assembled with scatter-adds; fixed
+    nodes get identity rows and a zero step. Returns (K, d), non-finite
+    entries zeroed."""
+    d = J.shape[-1] // 2
+    Ji = J[..., :d] * w[:, None, None]    # weighted (E, m, d) wrt node i
+    Jj = J[..., d:] * w[:, None, None]
+    dtype, dev = J.dtype, J.device
+    H = torch.zeros((K, K, d, d), dtype=dtype, device=dev)
+    b = torch.zeros((K, d), dtype=dtype, device=dev)
+    H.index_put_((ei, ei), torch.einsum("eai,eaj->eij", Ji, J[..., :d]), accumulate=True)
+    H.index_put_((ej, ej), torch.einsum("eai,eaj->eij", Jj, J[..., d:]), accumulate=True)
+    H.index_put_((ei, ej), torch.einsum("eai,eaj->eij", Ji, J[..., d:]), accumulate=True)
+    H.index_put_((ej, ei), torch.einsum("eai,eaj->eij", Jj, J[..., :d]), accumulate=True)
     b.index_add_(0, ei, -torch.einsum("eai,ea->ei", Ji, r))
     b.index_add_(0, ej, -torch.einsum("eai,ea->ei", Jj, r))
 
     # Damping + gauge freeze.
-    eye6 = torch.eye(6, dtype=R.dtype, device=R.device)
-    k = torch.arange(K, device=R.device)
+    eye = torch.eye(d, dtype=dtype, device=dev)
+    k = torch.arange(K, device=dev)
     diag_blocks = H[k, k]
-    diag_scale = torch.einsum("kii->k", diag_blocks) / 6.0 + 1e-6
-    H[k, k] += lam * diag_scale[:, None, None] * eye6
+    diag_scale = torch.einsum("kii->k", diag_blocks) / float(d) + 1e-6
+    H[k, k] += lam * diag_scale[:, None, None] * eye
     H = H * f[:, None, None, None] * f[None, :, None, None]
-    H[k, k] += (1.0 - f)[:, None, None] * eye6
+    H[k, k] += (1.0 - f)[:, None, None] * eye
     b = b * f[:, None]
 
-    H_flat = H.permute(0, 2, 1, 3).reshape(6 * K, 6 * K)
+    H_flat = H.permute(0, 2, 1, 3).reshape(d * K, d * K)
     # solve_ex does not raise on a singular system; the NaN step is zeroed.
-    delta, _ = torch.linalg.solve_ex(H_flat, b.reshape(6 * K))
-    return _update(delta.reshape(K, 6), R, t, f)
+    delta, _ = torch.linalg.solve_ex(H_flat, b.reshape(d * K))
+    return _finite_step(delta.reshape(K, d), f)
 
 
-def _gn_step_pcg(R, t, graph: PoseGraph, lam, params: PGParams, K: int):
+def pcg_delta(r, J, w, f, lam, ei, ej, K: int, iters: int):
     """Matrix-free LM step: block-Jacobi-preconditioned CG on the edge
-    list. Never materializes H: each matvec is two gathers, two batched
-    6x12 products and two scatter-adds over the E edges."""
-    r, J, w, f = _edge_system(R, t, graph, params)
-    Ji = J[..., :6]
-    Jj = J[..., 6:]
-    ei, ej = graph.edge_i, graph.edge_j
+    list, `iters` iterations. Never materializes H: each matvec is two
+    gathers, two batched (m x d) products and two scatter-adds over the E
+    edges."""
+    d = J.shape[-1] // 2
+    Ji = J[..., :d]
+    Jj = J[..., d:]
+    dtype, dev = J.dtype, J.device
 
     # RHS b = -J^T W r and block diagonal D_kk = sum J^T W J.
     Jiw = Ji * w[:, None, None]
     Jjw = Jj * w[:, None, None]
-    b = torch.zeros((K, 6), dtype=R.dtype, device=R.device)
+    b = torch.zeros((K, d), dtype=dtype, device=dev)
     b.index_add_(0, ei, -torch.einsum("eai,ea->ei", Jiw, r))
     b.index_add_(0, ej, -torch.einsum("eai,ea->ei", Jjw, r))
-    D = torch.zeros((K, 6, 6), dtype=R.dtype, device=R.device)
+    D = torch.zeros((K, d, d), dtype=dtype, device=dev)
     D.index_add_(0, ei, torch.einsum("eai,eaj->eij", Jiw, Ji))
     D.index_add_(0, ej, torch.einsum("eai,eaj->eij", Jjw, Jj))
 
     # LM damping as in the dense path: lam * mean-diag scale * I.
-    eye6 = torch.eye(6, dtype=R.dtype, device=R.device)
-    diag_scale = torch.einsum("kii->k", D) / 6.0 + 1e-6
+    eye = torch.eye(d, dtype=dtype, device=dev)
+    diag_scale = torch.einsum("kii->k", D) / float(d) + 1e-6
     damp = lam * diag_scale
-    D_damped = D + damp[:, None, None] * eye6
+    D_damped = D + damp[:, None, None] * eye
     # Gauge: fixed nodes get identity rows in H and 0 rhs.
-    D_prec = torch.where(f[:, None, None] > 0, D_damped, eye6)
+    D_prec = torch.where(f[:, None, None] > 0, D_damped, eye)
     M_inv, _ = torch.linalg.inv_ex(D_prec)
     b = b * f[:, None]
 
@@ -190,7 +203,7 @@ def _gn_step_pcg(R, t, graph: PoseGraph, lam, params: PGParams, K: int):
             torch.einsum("eab,eb->ea", Ji, v[ei])
             + torch.einsum("eab,eb->ea", Jj, v[ej])
         ) * w[:, None]
-        out = torch.zeros((K, 6), dtype=R.dtype, device=R.device)
+        out = torch.zeros((K, d), dtype=dtype, device=dev)
         out.index_add_(0, ei, torch.einsum("eab,ea->eb", Ji, y))
         out.index_add_(0, ej, torch.einsum("eab,ea->eb", Jj, y))
         out = out + damp[:, None] * v
@@ -204,7 +217,7 @@ def _gn_step_pcg(R, t, graph: PoseGraph, lam, params: PGParams, K: int):
     z = prec(rr)
     pdir = z
     rz = torch.sum(rr * z)
-    for _ in range(params.pcg_iters):
+    for _ in range(iters):
         Hp = hv(pdir)
         denom = torch.sum(pdir * Hp)
         alpha = torch.where(denom > 1e-20, rz / denom, 0.0)
@@ -215,7 +228,43 @@ def _gn_step_pcg(R, t, graph: PoseGraph, lam, params: PGParams, K: int):
         beta = torch.where(rz > 1e-20, rz_new / rz, 0.0)
         pdir = z + beta * pdir
         rz = rz_new
-    return _update(x, R, t, f)
+    return _finite_step(x, f)
+
+
+def _finite_step(delta, f):
+    return torch.where(torch.isfinite(delta), delta, 0.0) * f[:, None]
+
+
+def linear_step(params, K: int):
+    """The LM step's linear solver, picked from the (static) node count:
+    dense up to params.pcg_threshold nodes, matrix-free PCG above."""
+    if params.solver == "pcg" or (params.solver == "auto" and K > params.pcg_threshold):
+        return lambda *a: pcg_delta(*a, iters=params.pcg_iters)
+    return dense_delta
+
+
+def levenberg_marquardt(state, step, cost, params):
+    """`params.iters` LM iterations over a tuple of node tensors: `step`
+    maps (state, lam) to a candidate state, `cost` a state to its robust
+    cost. Accept or reject through `torch.where`, with no host sync.
+    Returns (state, initial cost, final cost, cost history)."""
+    cost0 = cost(state)
+    c = cost0
+    lam = torch.full((), params.lam0, dtype=cost0.dtype, device=cost0.device)
+    hist = []
+    for _ in range(params.iters):
+        cand = step(state, lam)
+        new_cost = cost(cand)
+        accept = new_cost < c
+        state = tuple(torch.where(accept, n, o) for n, o in zip(cand, state))
+        c = torch.where(accept, new_cost, c)
+        lam = torch.where(
+            accept,
+            torch.clamp(lam * params.lam_down, min=1e-9),
+            torch.clamp(lam * params.lam_up, max=1e6),
+        )
+        hist.append(c)
+    return state, cost0, c, torch.stack(hist) if hist else cost0[None][:0]
 
 
 def _bucket(n: int, floor: int = 16) -> int:
@@ -271,36 +320,21 @@ def solve_padded(pg_R, pg_t, edges, params: PGParams = PGParams(), *, device):
 
 
 def solve(graph: PoseGraph, params: PGParams = PGParams()):
-    """LM pose-graph optimization; returns (graph, info).
-
-    The linear solver is picked from the (static) node count: dense up to
-    params.pcg_threshold nodes, matrix-free PCG above.
-    """
+    """LM pose-graph optimization; returns (graph, info). The linear
+    solver is dense up to params.pcg_threshold nodes, PCG above."""
     K = graph.R.shape[0]
-    use_pcg = params.solver == "pcg" or (
-        params.solver == "auto" and K > params.pcg_threshold
-    )
-    step = _gn_step_pcg if use_pcg else _gn_step
+    delta = linear_step(params, K)
+    ei, ej = graph.edge_i, graph.edge_j
 
-    cost0 = compute_cost(graph, params)
-    R, t, cost = graph.R, graph.t, cost0
-    lam = torch.full((), params.lam0, dtype=graph.R.dtype, device=graph.R.device)
-    hist = []
-    for _ in range(params.iters):
-        R_n, t_n = step(R, t, graph, lam, params, K)
-        new_cost = compute_cost(graph._replace(R=R_n, t=t_n), params)
-        accept = new_cost < cost
-        R = torch.where(accept, R_n, R)
-        t = torch.where(accept, t_n, t)
-        cost = torch.where(accept, new_cost, cost)
-        lam = torch.where(
-            accept,
-            torch.clamp(lam * params.lam_down, min=1e-9),
-            torch.clamp(lam * params.lam_up, max=1e6),
-        )
-        hist.append(cost)
+    def step(state, lam):
+        R, t = state
+        r, J, w, f = _edge_system(R, t, graph, params)
+        return se3.left_update(delta(r, J, w, f, lam, ei, ej, K), R, t)
+
+    def cost(state):
+        return compute_cost(graph._replace(R=state[0], t=state[1]), params)
+
+    (R, t), cost0, cost1, hist = levenberg_marquardt((graph.R, graph.t), step, cost, params)
     return graph._replace(R=R, t=t), {
-        "initial_cost": cost0,
-        "final_cost": cost,
-        "cost_history": torch.stack(hist) if hist else cost0[None][:0],
+        "initial_cost": cost0, "final_cost": cost1, "cost_history": hist,
     }

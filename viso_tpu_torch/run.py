@@ -24,6 +24,11 @@ import os
 import numpy as np
 import torch
 
+# Modes that step one image per frame (and align their ATE with a scale),
+# and modes with a loop layer (a full SLAM checkpoint).
+MONO_MODES = ("mono", "mono-slam")
+SLAM_MODES = ("slam", "mono-slam")
+
 
 def _loop_params(args):
     from viso_tpu_torch.slam.loop_closure import LoopParams
@@ -70,6 +75,10 @@ def build_engine(seq, args, device):
         from viso_tpu_torch.slam.full import StereoSLAM
 
         return StereoSLAM(cfg, _loop_params(args), device=device)
+    if args.mode == "mono-slam":
+        from viso_tpu_torch.slam.mono_full import MonoSLAM
+
+        return MonoSLAM(cfg, _loop_params(args), device=device)
     raise ValueError(args.mode)
 
 
@@ -93,7 +102,7 @@ def _synthetic(args):
     intr = camera.Intrinsics.create(260.0, 260.0, w / 2 - 0.5, h / 2 - 0.5)
     scene = synthetic.corridor_scene(np.random.default_rng(0))
     Rs, ts = synthetic.forward_trajectory(args.max_frames or 30, step=0.4)
-    if args.mode == "mono" and not args.init_disparity_px:
+    if args.mode in MONO_MODES and not args.init_disparity_px:
         # Forward motion yields small radial flow; the reference's 15 px
         # lateral-motion gate would never accept an init here.
         args.init_disparity_px = 5.0
@@ -168,11 +177,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mode == "mono-slam":
-        raise NotImplementedError(
-            "--mode mono-slam needs the Sim(3) SLAM layer, not ported yet "
-            "(ROADMAP.md Queue 1, 'monocular SLAM')"
-        )
     if args.distribute:
         raise NotImplementedError(
             "--distribute is not ported yet (ROADMAP.md Queue 1, 'Distributed BA')"
@@ -190,7 +194,7 @@ def main(argv=None):
         args.height, args.width = first.image.shape
     vo = build_engine(seq, args, device)
     if args.resume:
-        if args.mode == "slam":
+        if args.mode in SLAM_MODES:
             # Full SLAM restore (map, pose graph, loop database).
             vo.close()
             vo, extra = checkpoint.load_slam(args.resume, vo.cfg, vo.loop_params, device=device)
@@ -220,7 +224,7 @@ def main(argv=None):
     processed_idx: list[int] = []
     try:
         for frame in itertools.chain([first], frames_iter):
-            if args.mode == "mono":
+            if args.mode in MONO_MODES:
                 r = vo.process(frame.image)
             else:
                 r = vo.process(frame.image, frame.image_right)
@@ -236,7 +240,7 @@ def main(argv=None):
             if args.viz_every and frame.index % args.viz_every == 0:
                 write_overlay(frame.index)
             if args.checkpoint_every and frame.index and frame.index % args.checkpoint_every == 0:
-                if args.mode == "slam":
+                if args.mode in SLAM_MODES:
                     checkpoint.save_slam(os.path.join(args.out_dir, "slam.npz"), vo,
                                          extra={"frame": frame.index})
                 else:
@@ -263,7 +267,7 @@ def main(argv=None):
         gt_t = np.asarray(seq.gt_t)[sel]
         summary["ate_rmse_m"] = metrics.ate_rmse(
             metrics.camera_centers(R_est, t_est), metrics.camera_centers(gt_R, gt_t),
-            align=True, with_scale=args.mode == "mono",
+            align=True, with_scale=args.mode in MONO_MODES,
         )
         summary["rpe_trans_m"], summary["rpe_rot_deg"] = metrics.rpe(R_est, t_est, gt_R, gt_t)
         title = f"{seq.name} ATE={summary['ate_rmse_m']:.3f} m"

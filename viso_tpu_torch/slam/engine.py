@@ -752,7 +752,7 @@ class MonocularVO(BaseVO):
         # Scale priors for the new segment (see _try_initialize): the
         # camera's speed and the visible scene's depth are continuous
         # through a short loss.
-        self._scale_prior = self._recent_motion()[0]
+        self._scale_prior = self._recent_speed()
         self._depth_prior = self._map_median_depth()
         # Constant-velocity dead reckoning through the blackout.
         self._dr_fwd = self._recent_fwd()
@@ -776,6 +776,11 @@ class MonocularVO(BaseVO):
         # SLAM layers treat the post-reinit odometry edge as dead reckoning.
         self._last_recovery_frame = self.frame_idx
         self._try_initialize(pyr)
+
+    def _recent_speed(self):
+        """Median per-frame camera-centre speed (m/frame) over the last
+        healthy frames (`BaseVO._recent_motion`), or None."""
+        return self._recent_motion()[0]
 
     def _map_median_depth(self):
         """Median camera-frame depth of the map's valid landmarks, or None

@@ -22,6 +22,14 @@ assigned at enqueue time, so frame -> node anchoring stays exact;
 Worker failures are recorded in `hook_errors`, not raised (a failed hook
 leaves a placeholder node so later ids stay dense), as the JAX package
 does; callers that must not pass over a failure check `hook_errors`.
+
+`LoopLayer` holds what stereo and monocular SLAM (`slam/mono_full.py`)
+share: the node and edge bookkeeping, the hook's two sides, the throttle,
+the solve-health gate with its rollback and the node-anchored
+trajectory. The JAX package writes it out in both classes; here a
+subclass says only how its nodes and edges look (SE(3) here, Sim(3) for
+mono), how it detects a loop and how it solves. A stereo node's scale is
+1 throughout.
 """
 
 from __future__ import annotations
@@ -65,11 +73,18 @@ def make_digest_kernel(num_features: int):
     return digest
 
 
-class StereoSLAM(StereoVO):
-    def __init__(self, config: VOConfig, loop_params: LoopParams | None = None, *, device):
-        super().__init__(config, device)
+class LoopLayer:
+    """The SLAM loop layer of an engine (a mixin before the VO class).
+
+    Subclasses set `_thread_name` and define `_odometry_edge` (the
+    sequential edge and the new node's estimate), `_detect_loop`,
+    `_loop_edge` and `_solve`; for nodes with a scale also
+    `_node_scales`, `_add_estimate`, `_store_solution` and
+    `_solve_health`."""
+
+    def _init_loop_layer(self, loop_params: LoopParams | None):
         self.loop_params = loop_params or LoopParams()
-        self.loop_db = LoopDatabase(self.loop_params, seed=config.seed + 1,
+        self.loop_db = LoopDatabase(self.loop_params, seed=self.cfg.seed + 1,
                                     device=self.device)
         self._digest = make_digest_kernel(self.loop_params.num_features)
         # Pose graph over all keyframes. pg_raw_*: immutable odometry
@@ -81,7 +96,7 @@ class StereoSLAM(StereoVO):
         self.pg_R: list[np.ndarray] = []
         self.pg_t: list[np.ndarray] = []
         self.pg_frame: list[int] = []
-        self.pg_edges: list[tuple] = []   # (i, j, R_ij, t_ij, weight)
+        self.pg_edges: list[tuple] = []
         self.loops: list[dict] = []
         # Per-frame anchor node.
         self._anchors: list[int] = []
@@ -96,7 +111,7 @@ class StereoSLAM(StereoVO):
         # One worker: enqueue order == execution order, so node ids
         # assigned at enqueue keep frame anchoring exact.
         self._hook_pool = concurrent.futures.ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="viso-loop"
+            max_workers=1, thread_name_prefix=self._thread_name
         )
         self._hook_last = None
         self._next_node = 0
@@ -127,6 +142,25 @@ class StereoSLAM(StereoVO):
             self._hook_pool = None
             pool.shutdown(wait=True)
 
+    # -- node scales (1 for SE(3) nodes) --------------------------------
+    def _node_scales(self) -> np.ndarray:
+        return np.ones(len(self.pg_R), np.float32)
+
+    def _add_estimate(self, s, R, t):
+        self.pg_R.append(R)
+        self.pg_t.append(t)
+
+    def _store_solution(self, s, R, t):
+        self.pg_R = [R[k].copy() for k in range(len(R))]
+        self.pg_t = [t[k].copy() for k in range(len(t))]
+
+    def _solve_health(self, jump, s_new):
+        """(jump, scales_ok) for the gate. SE(3) nodes, as the JAX
+        package's stereo gate: a NaN jump or angle compares false with the
+        ceilings, so a non-finite solve is accepted
+        (tests/test_torch_loop_layer.py pins it on both packages)."""
+        return jump, True
+
     # -- node-anchored trajectory --------------------------------------
     def _record(self, **kw):
         super()._record(**kw)
@@ -135,7 +169,11 @@ class StereoSLAM(StereoVO):
     def trajectory(self):
         """Per-frame world->cam poses with all pose-graph corrections:
         T_final = (T_frame o T_raw_node^-1) o T_node_solved for each
-        frame's anchor node. The raw VO poses are never mutated."""
+        frame's anchor node, in metric form: a node's solved similarity
+        (s_k, R_k, t_k) is the pose (R_k, t_k / s_k), and the frame's
+        offset from its node (raw odometry, node-local metric) has its
+        translation divided by s_k too. The raw VO poses are never
+        mutated."""
         self.join()
         R, t = _pull_poses(self.results)
         anchors = np.asarray(self._anchors[: len(R)])
@@ -144,13 +182,19 @@ class StereoSLAM(StereoVO):
             a = anchors[sel]
             raw_R = np.stack(self.pg_raw_R)[a]
             raw_t = np.stack(self.pg_raw_t)[a]
+            s = self._node_scales()[a]
             sol_R = np.stack(self.pg_R)[a]
-            sol_t = np.stack(self.pg_t)[a]
+            sol_t = np.stack(self.pg_t)[a] / s[:, None]
             R_rel = np.einsum("nij,nkj->nik", R[sel], raw_R)
-            t_rel = t[sel] - np.einsum("nij,nj->ni", R_rel, raw_t)
+            t_rel = (t[sel] - np.einsum("nij,nj->ni", R_rel, raw_t)) / s[:, None]
             R[sel] = np.einsum("nij,njk->nik", R_rel, sol_R)
             t[sel] = np.einsum("nij,nj->ni", R_rel, sol_t) + t_rel
         return R, t
+
+    def graph_trajectory(self):
+        """Keyframe trajectory after pose-graph corrections (metric)."""
+        s = self._node_scales()
+        return np.stack(self.pg_R), np.stack(self.pg_t) / s[:, None], list(self.pg_frame)
 
     # Post-BA keyframe hook, dispatch-thread side: the digest, the
     # copies to the host, one event, and the enqueue.
@@ -173,24 +217,26 @@ class StereoSLAM(StereoVO):
             )
             self._seam_trans += 2.0 * (sp if sp else 0.3) * span
             self._seam_rot += 2.0 * (rr if rr else 0.1) * span
-        kps, kp_mask, desc, pts = self._digest(self.map, slot, pyr[0])
-        host = HostFetch(self.R, self.t, kps, kp_mask, pts)
+        # (kps, kp_mask, desc, pts) on the device; the pose and the
+        # keypoints, their mask and landmarks on their way to the host.
+        digest = self._digest(self.map, slot, pyr[0])
+        host = HostFetch(self.R, self.t, digest[0], digest[1], digest[3])
         self._hook_last = self._hook_pool.submit(
-            self._hook_task, node_id, kps, kp_mask, desc, host,
-            frame_idx, tracked, recovery, self._seam_trans, self._seam_rot,
+            self._hook_task, node_id, digest, host, frame_idx, tracked, recovery,
+            self._seam_trans, self._seam_rot,
         )
 
-    def _hook_task(self, node_id, kps, kp_mask, desc, host, frame_idx,
-                   tracked, recovery_frame, seam_t=0.0, seam_r=0.0):
+    def _hook_task(self, node_id, digest, host, frame_idx, tracked, recovery_frame,
+                   seam_t=0.0, seam_r=0.0):
         """Worker-side keyframe hook. A failure is recorded and leaves a
-        placeholder node, so ids stay dense for later hooks and
-        trajectory()."""
+        placeholder node (the raw pose, scale 1), so ids stay dense for
+        later hooks and trajectory()."""
         try:
-            self._hook_task_impl(node_id, kps, kp_mask, desc, host, frame_idx,
-                                 tracked, recovery_frame, seam_t, seam_r)
+            self._hook_task_impl(node_id, digest, host, frame_idx, tracked,
+                                 recovery_frame, seam_t, seam_r)
         except Exception as e:  # noqa: BLE001 -- record, don't poison the worker
             self.hook_errors.append(e)
-            print(f"[viso-loop] keyframe hook failed (node {node_id}): "
+            print(f"[{self._thread_name}] keyframe hook failed (node {node_id}): "
                   f"{type(e).__name__}: {e}", file=sys.stderr)
             try:
                 R_np, t_np = host.result()[:2]
@@ -202,51 +248,42 @@ class StereoSLAM(StereoVO):
             while len(self.pg_raw_R) <= node_id:
                 self.pg_raw_R.append(R_np.copy())
                 self.pg_raw_t.append(t_np.copy())
-                self.pg_R.append(R_np.copy())
-                self.pg_t.append(t_np.copy())
+                self._add_estimate(1.0, R_np.copy(), t_np.copy())
                 self.pg_frame.append(frame_idx)
 
-    def _hook_task_impl(self, node_id, kps, kp_mask, desc, host, frame_idx,
-                        tracked, recovery_frame, seam_t=0.0, seam_r=0.0):
-        p = self.loop_params
+    def _hook_task_impl(self, node_id, digest, host, frame_idx, tracked,
+                        recovery_frame, seam_t=0.0, seam_r=0.0):
         R_np, t_np, kps_h, mask_h, pts_h = host.result()   # waits on the event
         assert node_id == len(self.pg_raw_R)
         self.pg_raw_R.append(R_np.copy())
         self.pg_raw_t.append(t_np.copy())
         self.pg_frame.append(frame_idx)
         if node_id > 0:
-            R_rel, t_rel = _rel_np(
-                self.pg_raw_R[node_id - 1], self.pg_raw_t[node_id - 1], R_np, t_np,
-            )
-            # An odometry edge spanning a forced lost-tracking recovery is
-            # dead reckoning: low weight.
-            prev_f = self.pg_frame[node_id - 1]
-            recovered = recovery_frame >= prev_f
-            w_seq = 0.1 if recovered else 1.0
-            self.pg_edges.append((node_id - 1, node_id, R_rel, t_rel, w_seq))
-            # Global estimate for the new node: the raw forward increment
-            # on top of the previous node's solved estimate.
-            R_fwd, t_fwd = _rel_np(
-                R_np, t_np, self.pg_raw_R[node_id - 1], self.pg_raw_t[node_id - 1],
-            )
-            self.pg_R.append(R_fwd @ self.pg_R[node_id - 1])
-            self.pg_t.append(R_fwd @ self.pg_t[node_id - 1] + t_fwd)
+            prev = node_id - 1
+            R_rel, t_rel = _rel_np(self.pg_raw_R[prev], self.pg_raw_t[prev], R_np, t_np)
+            # An odometry edge spanning a forced lost-tracking recovery
+            # (stereo) or a re-init seam (mono) is dead reckoning: low
+            # weight.
+            w_seq = 0.1 if recovery_frame >= self.pg_frame[prev] else 1.0
+            # The new node's estimate: the raw forward increment on top of
+            # the previous node's solved estimate.
+            R_fwd, t_fwd = _rel_np(R_np, t_np, self.pg_raw_R[prev], self.pg_raw_t[prev])
+            self._odometry_edge(prev, R_rel, t_rel, w_seq, R_fwd, t_fwd)
             # Advance the drift clock by this keyframe step's odometry.
-            c_prev = -self.pg_raw_R[node_id - 1].T @ self.pg_raw_t[node_id - 1]
+            c_prev = -self.pg_raw_R[prev].T @ self.pg_raw_t[prev]
             c_cur = -R_np.T @ t_np
             self._path_len += float(np.linalg.norm(c_cur - c_prev))
             self._rot_len += float(
                 np.arccos(np.clip((np.trace(R_rel) - 1) / 2, -1, 1))
             )
         else:
-            self.pg_R.append(R_np.copy())
-            self.pg_t.append(t_np.copy())
+            self._add_estimate(1.0, R_np.copy(), t_np.copy())
 
         # Database entry in the raw odometry frame: the descriptors stay
         # on the device, the host mirrors come from the pinned copies.
         self.loop_db.add(
             None, kps_h, mask_h, pts_h, mask_h, R_np, t_np, frame_idx,
-            node_id=node_id, desc=desc,
+            node_id=node_id, desc=digest[2],
             path_len=self._path_len, rot_len=self._rot_len,
             seam_t=seam_t, seam_r=seam_r,
         )
@@ -256,39 +293,111 @@ class StereoSLAM(StereoVO):
         recent_recovery = frame_idx - recovery_frame <= 2 * self.cfg.kf_min_gap
         if recent_recovery or tracked < self.cfg.min_tracked_points:
             return
-        cand = self.loop_db.detect_fused(
-            desc, kps, kp_mask, R_np, t_np, self.intr,
-            path_len=self._path_len, rot_len=self._rot_len,
-            seam_t=seam_t, seam_r=seam_r,
-        )
-        if cand is not None:
-            # cand.R_rel is T_cur o T_cand^-1; the (cand -> cur) edge
-            # needs T_cand o T_cur^-1.
-            R_e = cand.R_rel.T
-            t_e = -cand.R_rel.T @ cand.t_rel
-            # Loop edge weight: a bounded multiple of the odometry weight.
-            w_loop = min(float(cand.inliers) / p.min_inliers, 3.0)
-            self._pending_loop_edges.append(len(self.pg_edges))
-            self._pending_loops.append(len(self.loops))
-            self.pg_edges.append((cand.db_index, node_id, R_e, t_e, w_loop))
-            self.loops.append({"from": node_id, "to": cand.db_index,
-                               "frame": frame_idx, "inliers": cand.inliers})
-            self._pg_dirty = True
-            # Throttle: optimize at most once per min_event_gap_kf
-            # keyframes; join() flushes what is still pending at the end.
-            if node_id - self._last_event_node >= p.min_event_gap_kf:
-                self._event_node_prev = self._last_event_node
-                self._last_event_node = node_id
-                self._pg_dirty = False
-                self._optimize_pose_graph()
+        cand = self._detect_loop(digest, R_np, t_np, seam_t, seam_r)
+        if cand is None:
+            return
+        # Loop edge weight: a bounded multiple of the odometry weight.
+        w_loop = min(float(cand.inliers) / self.loop_params.min_inliers, 3.0)
+        edge, loop = self._loop_edge(cand, node_id, w_loop)
+        loop = {"from": node_id, "to": cand.db_index, "frame": frame_idx,
+                "inliers": cand.inliers, **loop}
+        self._pending_loop_edges.append(len(self.pg_edges))
+        self._pending_loops.append(len(self.loops))
+        self.pg_edges.append(edge)
+        self.loops.append(loop)
+        self._pg_dirty = True
+        # Throttle: optimize at most once per min_event_gap_kf keyframes;
+        # join() flushes what is still pending at the end.
+        if node_id - self._last_event_node >= self.loop_params.min_event_gap_kf:
+            self._event_node_prev = self._last_event_node
+            self._last_event_node = node_id
+            self._pg_dirty = False
+            self._optimize_pose_graph()
 
     def _optimize_pose_graph(self):
-        """Re-solve the global graph. Touches only pg_R / pg_t (the output
-        estimates); the live VO state is never corrected."""
+        """Re-solve the global graph. Touches only the node estimates (the
+        output); the live VO state is never corrected."""
         K = len(self.pg_R)
         if K < 3 or not self.pg_edges:
             return
         debug = os.environ.get("VISO_LOOP_DEBUG") == "1"
+        s_new, R_new, t_new, info = self._solve(K, debug)
+
+        # Solve-health gate over all nodes: a metric camera centre moving
+        # beyond the loop gate's hard ceilings means a diverged solve or
+        # an inconsistent graph (an aliased mid-trajectory edge can bend
+        # the middle while barely moving the newest node). Reject: drop
+        # the pending loop edges and keep the previous solution.
+        s_old = self._node_scales()
+        R_old = np.stack(self.pg_R)
+        t_old = np.stack(self.pg_t)
+        c_old = -np.einsum("nji,nj->ni", R_old, t_old) / s_old[:, None]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            c_new = -np.einsum("nji,nj->ni", R_new, t_new) / s_new[:, None]
+        jump = float(np.linalg.norm(c_new - c_old, axis=-1).max())
+        tr = np.einsum("nii->n", np.einsum("nij,nkj->nik", R_new, R_old))
+        ang = float(np.arccos(np.clip((tr - 1) / 2, -1, 1)).max())
+        jump, scales_ok = self._solve_health(jump, s_new)
+        lp = self.loop_params
+        if jump > lp.max_correction_m or ang > lp.max_correction_rad or not scales_ok:
+            # Roll back every loop edge added since the last accepted
+            # solve, and the throttle clock with them.
+            for k in reversed(self._pending_loop_edges):
+                del self.pg_edges[k]
+            for k in reversed(self._pending_loops):
+                del self.loops[k]
+            n_dropped = len(self._pending_loop_edges)
+            self._pending_loop_edges.clear()
+            self._pending_loops.clear()
+            self._last_event_node = getattr(self, "_event_node_prev", -(10**9))
+            if debug:
+                print(f"[pose-graph] REJECTED event: |jump|={jump:.2f} m "
+                      f"ang={ang:.3f} rad scales_ok={scales_ok} "
+                      f"({n_dropped} loop edge(s) dropped)", file=sys.stderr)
+            return
+        if debug:
+            print(f"[pose-graph] K={K} E={len(self.pg_edges)} "
+                  f"cost {float(info['initial_cost']):.4f} -> "
+                  f"{float(info['final_cost']):.4f} |corr|={jump:.3f} "
+                  f"s[{K - 1}]={s_new[K - 1]:.3f}", file=sys.stderr)
+        self._store_solution(s_new, R_new, t_new)
+        # Accepted: the loop edges it incorporated are now permanent.
+        self._pending_loop_edges.clear()
+        self._pending_loops.clear()
+
+
+class StereoSLAM(LoopLayer, StereoVO):
+    """Stereo VO + loop closure + SE(3) pose-graph correction. Edges are
+    (i, j, R_ij, t_ij, weight)."""
+
+    _thread_name = "viso-loop"
+
+    def __init__(self, config: VOConfig, loop_params: LoopParams | None = None, *, device):
+        super().__init__(config, device)
+        self._init_loop_layer(loop_params)
+
+    def _odometry_edge(self, prev, R_rel, t_rel, w_seq, R_fwd, t_fwd):
+        node_id = prev + 1
+        self.pg_edges.append((prev, node_id, R_rel, t_rel, w_seq))
+        self.pg_R.append(R_fwd @ self.pg_R[prev])
+        self.pg_t.append(R_fwd @ self.pg_t[prev] + t_fwd)
+
+    def _detect_loop(self, digest, R_np, t_np, seam_t, seam_r):
+        kps, kp_mask, desc, _ = digest
+        return self.loop_db.detect_fused(
+            desc, kps, kp_mask, R_np, t_np, self.intr,
+            path_len=self._path_len, rot_len=self._rot_len,
+            seam_t=seam_t, seam_r=seam_r,
+        )
+
+    def _loop_edge(self, cand, node_id, w_loop):
+        # cand.R_rel is T_cur o T_cand^-1; the (cand -> cur) edge needs
+        # T_cand o T_cur^-1.
+        R_e = cand.R_rel.T
+        t_e = -cand.R_rel.T @ cand.t_rel
+        return (cand.db_index, node_id, R_e, t_e, w_loop), {}
+
+    def _solve(self, K, debug):
         if debug:
             g0, _ = pose_graph.solve_padded(
                 self.pg_R, self.pg_t, self.pg_edges, pose_graph.PGParams(iters=0),
@@ -305,48 +414,4 @@ class StereoSLAM(StereoVO):
             self.pg_R, self.pg_t, self.pg_edges, pose_graph.PGParams(iters=25),
             device=self.device,
         )
-        R_new = out.R[:K].cpu().numpy()
-        t_new = out.t[:K].cpu().numpy()
-
-        # Solve-health gate over all nodes: any node moving beyond the
-        # loop gate's hard ceilings means a diverged solve or an
-        # inconsistent graph. Reject: drop the pending loop edges and
-        # keep the previous solution.
-        R_old = np.stack(self.pg_R)
-        t_old = np.stack(self.pg_t)
-        c_old = -np.einsum("nji,nj->ni", R_old, t_old)
-        c_new = -np.einsum("nji,nj->ni", R_new, t_new)
-        jump = float(np.linalg.norm(c_new - c_old, axis=-1).max())
-        tr = np.einsum("nii->n", np.einsum("nij,nkj->nik", R_new, R_old))
-        ang = float(np.arccos(np.clip((tr - 1) / 2, -1, 1)).max())
-        lp = self.loop_params
-        if jump > lp.max_correction_m or ang > lp.max_correction_rad:
-            # Roll back every loop edge added since the last accepted
-            # solve, and the throttle clock with them.
-            for k in reversed(self._pending_loop_edges):
-                del self.pg_edges[k]
-            for k in reversed(self._pending_loops):
-                del self.loops[k]
-            n_dropped = len(self._pending_loop_edges)
-            self._pending_loop_edges.clear()
-            self._pending_loops.clear()
-            self._last_event_node = getattr(self, "_event_node_prev", -(10**9))
-            if debug:
-                print(f"[pose-graph] REJECTED event: |jump|={jump:.2f} m "
-                      f"ang={ang:.3f} rad exceeds gate ceilings "
-                      f"({n_dropped} loop edge(s) dropped)", file=sys.stderr)
-            return
-        if debug:
-            print(f"[pose-graph] K={K} E={len(self.pg_edges)} "
-                  f"cost {float(info['initial_cost']):.4f} -> "
-                  f"{float(info['final_cost']):.4f} |corr|={jump:.3f}", file=sys.stderr)
-        self.pg_R = [R_new[k].copy() for k in range(K)]
-        self.pg_t = [t_new[k].copy() for k in range(K)]
-        # Accepted: the loop edges it incorporated are now permanent.
-        self._pending_loop_edges.clear()
-        self._pending_loops.clear()
-
-    def graph_trajectory(self):
-        """Keyframe trajectory after pose-graph corrections."""
-        return np.stack(self.pg_R), np.stack(self.pg_t), list(self.pg_frame)
-
+        return np.ones(K, np.float32), out.R[:K].cpu().numpy(), out.t[:K].cpu().numpy(), info

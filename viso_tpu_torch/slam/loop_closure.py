@@ -22,8 +22,10 @@ selected with `torch.where` (the packed vector is the same).
 Hypotheses for RANSAC come from the database's `torch.Generator`, by the
 rule of the JAX package's `jax.random.categorical` draw; the streams
 differ, so runs agree with the JAX package in outcome, not bit for bit.
-The Sim(3) variant (`detect_fused_sim3`) belongs to monocular SLAM and is
-not ported yet.
+The Sim(3) variant (`detect_fused_sim3`, monocular SLAM) also fits the
+relative similarity of the two keyframes' local metrics (a masked
+Umeyama over the PnP inliers) in the same device function, and returns a
+29-float packed vector.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import numpy as np
 import torch
 
 from viso_tpu_torch.geometry import camera as cam_mod
+from viso_tpu_torch.geometry import se3, sim3
 from viso_tpu_torch.ops import descriptors, pnp
 
 # VISO_LOOP_DEBUG=1 prints every candidate's gate record to stderr.
@@ -244,35 +247,65 @@ class LoopDatabase:
         return self.detect_fused(desc_q, kps, kp_mask, R_cur, t_cur, intr,
                                  path_len=path_len, rot_len=rot_len)
 
-    def detect_fused_sim3(self, *args, **kwargs):
-        raise NotImplementedError(
-            "detect_fused_sim3 is monocular SLAM's loop detection, not "
-            "ported yet (ROADMAP.md Queue 1, monocular SLAM)"
-        )
-
     def detect_fused(self, desc_q, kps, kp_mask, R_cur, t_cur, intr,
                      path_len=None, rot_len=None, seam_t=None,
                      seam_r=None) -> Optional[LoopCandidate]:
         """Loop detection with precomputed query descriptors: one device
-        pass (`_detect_fused_kernel`, hypotheses drawn from the
-        database's generator) and one copy of its packed result to the
-        host, then the host gate."""
+        pass (`_detect_fused_kernel`) and one copy of its packed result to
+        the host, then the host gate."""
+        packed = self._detect_packed(_detect_fused_kernel, (desc_q, kp_mask, kps), intr)
+        if packed is None:
+            return None
+        return self._gate_packed(
+            packed, R_cur, t_cur, path_len, rot_len, seam_t, seam_r
+        )
+
+    def detect_fused_sim3(self, desc_q, kps, kp_mask, pts_q, pts_q_ok, R_cur, t_cur,
+                          intr, path_len=None, rot_len=None, seam_t=None,
+                          seam_r=None) -> Optional[LoopCandidate]:
+        """Monocular loop detection: `detect_fused` plus a masked-Umeyama
+        relative Sim(3) between the candidate's and the current segment's
+        local metrics, so the edge carries their scale ratio. `pts_q`
+        (the current keyframe's landmarks, in keypoint order) and
+        `pts_q_ok` stay on the device; `R_cur`, `t_cur` are the host's
+        odometry pose. One device pass, one copy to the host."""
+        query = (desc_q, kp_mask, kps, pts_q, pts_q_ok,
+                 torch.as_tensor(R_cur, device=self.device),
+                 torch.as_tensor(t_cur, device=self.device))
+        packed = self._detect_packed(_detect_fused_sim3_kernel, query, intr)
+        if packed is None:
+            return None
+        cand = self._gate_packed(packed, R_cur, t_cur, path_len, rot_len, seam_t, seam_r)
+        if cand is None:
+            return None
+        s_g = float(packed[16])
+        # A fit implying more than 0.7 of log-scale disagreement marks a
+        # degenerate geometry (a near-planar inlier set), not drift.
+        if abs(np.log(max(s_g, 1e-6))) > 0.7:
+            if _DEBUG_ENV:
+                print(f"[loop-stage] implausible scale ratio {s_g:.3f}", file=sys.stderr)
+            return None
+        # The Umeyama G is the graph edge's measurement S_cand o S_cur^-1
+        # (cam_cur-local -> cam_cand-local).
+        return cand._replace(s_rel=s_g, R_rel=packed[17:26].reshape(3, 3).astype(np.float32),
+                             t_rel=packed[26:29].astype(np.float32))
+
+    def _detect_packed(self, kernel, query, intr):
+        """One detection kernel over the database (hypotheses drawn from
+        its generator) and one copy of the packed result to the host;
+        None when no entry is outside the temporal guard."""
         p = self.params
         eligible = self._eligible()
         if not eligible.any():
             return None
         thresh = (p.pnp_threshold_px / float(intr.fx)) ** 2
-        packed = _detect_fused_kernel(
-            desc_q, kp_mask, kps, self.desc, self.desc_mask,
-            self.points_w_dev, self.points_ok_dev,
+        packed = kernel(
+            *query, self.desc, self.desc_mask, self.points_w_dev, self.points_ok_dev,
             torch.from_numpy(eligible).to(self.device), intr, thresh,
             p.min_matches, p.min_inliers,
             functools.partial(pnp.draw_hypotheses, self.generator),
         )
-        packed = packed.cpu().numpy()
-        return self._gate_packed(
-            packed, R_cur, t_cur, path_len, rot_len, seam_t, seam_r
-        )
+        return packed.cpu().numpy()
 
     def _gate_packed(self, packed, R_cur, t_cur, path_len, rot_len,
                      seam_t=None, seam_r=None):
@@ -392,19 +425,15 @@ def _match_counts(desc_q, mask_q, desc_db, mask_db):
     return torch.sum(ok, dim=-1)
 
 
-def _detect_fused_kernel(desc_q, mask_q, kps_q, desc_db, mask_db, pts_db,
-                         pts_ok_db, eligible, intr, thresh, min_matches,
-                         min_inliers, draw):
-    """The whole device side of a detection: capacity-wide match scoring,
-    best candidate, per-match association and PnP RANSAC (hypotheses
-    from `draw(mask)`), in tensor ops with no host sync of their own
-    (on CUDA the solvers inside PnP check their status on the host).
-
-    Returns the 16-float packed vector
-    [best_matches, best_slot, n_matched_with_3d, pnp_inliers, R(9), t(3)];
-    R, t and the inlier count are the identity, zero and 0 when the match
-    gates fail, as the JAX package's skipped branch returns.
-    """
+def _verify(desc_q, mask_q, kps_q, desc_db, mask_db, pts_db, pts_ok_db, eligible, intr,
+            thresh, min_matches, min_inliers, draw):
+    """Capacity-wide match scoring, best candidate, per-match association
+    and PnP RANSAC (hypotheses from `draw(mask)`), in tensor ops with no
+    host sync of their own (on CUDA the solvers inside PnP check their
+    status on the host). PnP always runs; `is_cand` says whether the
+    match gates passed. Returns (head, is_cand, PnP result, match mask,
+    matched candidate landmarks), head = [best_matches, best_slot,
+    n_matched_with_3d, pnp_inliers (0 without a candidate)]."""
     counts = _match_counts(desc_q, mask_q, desc_db, mask_db)
     counts = torch.where(eligible, counts, -1)
     best = torch.argmax(counts)
@@ -415,12 +444,54 @@ def _detect_fused_kernel(desc_q, mask_q, kps_q, desc_db, mask_db, pts_db,
     x = cam_mod.normalize(kps_q, intr)
     is_cand = (counts[best] >= min_matches) & (n_3d >= min_inliers)
     res = pnp.pnp_ransac_from_indices(draw(ok), pts3d, x, ok, threshold=thresh)
-    eye = torch.eye(3, dtype=torch.float32, device=pts3d.device)
-    R = torch.where(is_cand, res.R, eye)
-    t = torch.where(is_cand, res.t, 0.0)
     n_inl = torch.where(is_cand, res.num_inliers, 0)
     head = torch.stack([
         counts[best].to(torch.float32), best.to(torch.float32),
         n_3d.to(torch.float32), n_inl.to(torch.float32),
     ])
+    return head, is_cand, res, ok, pts3d
+
+
+def _select_pnp(is_cand, res):
+    """The PnP pose, or the identity and zero without a candidate, as the
+    JAX package's skipped branch returns."""
+    eye = torch.eye(3, dtype=torch.float32, device=res.R.device)
+    return torch.where(is_cand, res.R, eye), torch.where(is_cand, res.t, 0.0)
+
+
+def _detect_fused_kernel(desc_q, mask_q, kps_q, desc_db, mask_db, pts_db,
+                         pts_ok_db, eligible, intr, thresh, min_matches,
+                         min_inliers, draw):
+    """The whole device side of a detection (`_verify`). Returns the
+    16-float packed vector [best_matches, best_slot, n_matched_with_3d,
+    pnp_inliers, R(9), t(3)]."""
+    head, is_cand, res, _, _ = _verify(desc_q, mask_q, kps_q, desc_db, mask_db, pts_db,
+                                       pts_ok_db, eligible, intr, thresh, min_matches,
+                                       min_inliers, draw)
+    R, t = _select_pnp(is_cand, res)
     return torch.cat([head, R.reshape(-1), t])
+
+
+def _detect_fused_sim3_kernel(desc_q, mask_q, kps_q, pts_q, pts_q_ok, R_cur, t_cur,
+                              desc_db, mask_db, pts_db, pts_ok_db, eligible, intr,
+                              thresh, min_matches, min_inliers, draw):
+    """Monocular variant of `_detect_fused_kernel`: also fits the relative
+    Sim(3) between the candidate's and the current segment's local
+    metrics, a masked Umeyama over the PnP inliers' camera-frame
+    coordinates (the current keyframe's landmarks through its odometry
+    pose onto the candidate's landmarks through the PnP pose: the same
+    points in the same camera, in two scales). Packed: [matches, slot,
+    n3d, inliers, R_pnp(9), t_pnp(3), s_g, R_g(9), t_g(3)] (29 floats);
+    (1, I, 0) for the fit without a candidate."""
+    head, is_cand, res, ok, pts3d = _verify(desc_q, mask_q, kps_q, desc_db, mask_db,
+                                            pts_db, pts_ok_db, eligible, intr, thresh,
+                                            min_matches, min_inliers, draw)
+    p_i = se3.transform(res.R, res.t, pts3d)
+    p_j = se3.transform(R_cur, t_cur, pts_q)
+    s_g, R_g, t_g = sim3.umeyama_masked(p_j, p_i, res.inliers & ok & pts_q_ok)
+    R, t = _select_pnp(is_cand, res)
+    eye = torch.eye(3, dtype=torch.float32, device=R.device)
+    s_g = torch.where(is_cand, s_g, 1.0)
+    R_g = torch.where(is_cand, R_g, eye)
+    t_g = torch.where(is_cand, t_g, 0.0)
+    return torch.cat([head, R.reshape(-1), t, s_g[None], R_g.reshape(-1), t_g])

@@ -1,22 +1,35 @@
-"""The reference's monocular VO cell (`bench.py:329-449`, BASELINE config
-1) run once per RANSAC seed: the spread of its accuracy.
+"""The reference's monocular cells run once per RANSAC seed: the spread
+of their accuracy.
 
-    python -m viso_tpu_torch.tools.mono_cell [--seeds 0 1 2] [--frames 500]
-        [--device cuda|cpu]
+    python -m viso_tpu_torch.tools.mono_cell [--slam] [--seeds 0 1 2]
+        [--frames 500] [--device cuda|cpu]
 
-The cell: 184x616, half-KITTI intrinsics, 256 features, 1024 landmarks,
+Without `--slam`, the monocular VO cell (`bench.py:329-449`, BASELINE
+config 1): 184x616, half-KITTI intrinsics, 256 features, 1024 landmarks,
 grid 4x8, FAST 8, `kf_max_gap=8`, `kf_min_gap=2`, stats lag 2 / hard 4
 (deterministic), `kf_min_visible_frac=0.45`, init disparity 5 px, BA
 "auto" (photometric); `corridor_scene(default_rng(5), tex_size=1024,
 far_z=90)` along `forward_trajectory(500, step=0.15, yaw_rate=0.002)`,
-rendered once and quantised to uint8. A seed is `VOConfig.seed`, the seed
-of the engine's generator, from which the two-view bootstrap draws its
-RANSAC hypotheses; the CPU's and CUDA's generators give different streams
-for one seed. Prints one line per seed (scale-aligned ATE, scale drift
-end/start, end rotation error, keyframes, re-inits, the first tracking
-frame), then one JSON line with every seed's numbers. The default device
-is the card; without one it raises unless `--device cpu` is given.
-`chip_smoke.py` phase 7 runs this cell at seed 0.
+rendered once and quantised to uint8. Prints per seed the scale-aligned
+ATE, the scale drift end/start, the end rotation error, keyframes,
+re-inits and the first tracking frame.
+
+With `--slam`, the monocular SLAM cell (`bench.py:452-534`): MonoSLAM
+with the same configuration but FAST 6, `LoopParams(min_inliers=40,
+max_correction_m=4.0)`, on the left images of the stereo SLAM cell's
+500-frame loop orbit (`room_scene(default_rng(11), tex_size=768,
+half=5.5)`, `orbit_trajectory(500, radius=2.5, total_angle=4 pi)`,
+uint8). Prints per seed the scale-aligned keyframe ATE after the Sim(3)
+correction and of the raw odometry nodes, the loops (from, to, inliers,
+s_rel, and the s_rel that ground truth implies: `loop_scale_truth`), the
+range of node scales, keyframes, nodes and re-inits.
+
+A seed is `VOConfig.seed`, the seed of the engine's generator (the
+two-view bootstrap's RANSAC hypotheses) and, plus one, of the loop
+database's (PnP RANSAC); the CPU's and CUDA's generators give different
+streams for one seed. Ends with one JSON line with every seed's numbers.
+The default device is the card; without one it raises unless `--device
+cpu` is given. `chip_smoke.py` runs both cells at seed 0 (phases 7 and 9).
 """
 
 from __future__ import annotations
@@ -45,6 +58,73 @@ def config(seed: int = 0):
         stats_deterministic=True, kf_min_visible_frac=0.45, disparity_squared_thresh=25.0,
         seed=seed,
     )
+
+
+def slam_config(seed: int = 0):
+    """bench.py's monocular SLAM configuration (bench.py:472-481)."""
+    import dataclasses
+
+    return dataclasses.replace(config(seed), fast_threshold=6.0)
+
+
+def slam_loop_params():
+    """bench.py's mono SLAM loop parameters (bench.py:482-484)."""
+    from viso_tpu_torch.slam.loop_closure import LoopParams
+
+    return LoopParams(min_inliers=40, max_correction_m=4.0)
+
+
+def orbit():
+    """The loop orbit of the stereo and mono SLAM cells (bench.py:604-692):
+    its scene, intrinsics and 500 ground-truth poses (Rs, ts)."""
+    from viso_tpu_torch.data import synthetic
+    from viso_tpu_torch.geometry import camera
+
+    scene = synthetic.room_scene(np.random.default_rng(11), tex_size=768, half=5.5)
+    intr = camera.Intrinsics.create(**KITTI_HALF)
+    Rs, ts = synthetic.orbit_trajectory(FRAMES, radius=2.5, total_angle=4 * np.pi)
+    return scene, intr, Rs, ts
+
+
+def render_orbit(frames: int = FRAMES):
+    """The mono SLAM cell's uint8 frames (the left images of the orbit)
+    and ground-truth poses (Rs, ts)."""
+    from viso_tpu_torch.data import synthetic
+
+    scene, intr, Rs, ts = orbit()
+    Rs, ts = Rs[:frames], ts[:frames]
+    imgs = [np.clip(img, 0, 255).astype(np.uint8)
+            for img in synthetic.render_sequence(scene, intr, Rs, ts, H, W)]
+    return imgs, Rs, ts
+
+
+def slam_accuracy(slam, Rs, ts):
+    """bench.py's mono SLAM comparison: scale-aligned keyframe ATE (m) of
+    the Sim(3)-corrected graph and of the raw odometry nodes."""
+    from viso_tpu_torch.utils import metrics
+
+    pg_R, pg_t, frames = slam.graph_trajectory()
+    c_gt = metrics.camera_centers(Rs[frames], ts[frames])
+    raw = metrics.camera_centers(np.stack(slam.pg_raw_R), np.stack(slam.pg_raw_t))
+    return (float(metrics.ate_rmse(metrics.camera_centers(pg_R, pg_t), c_gt, align=True,
+                                   with_scale=True)),
+            float(metrics.ate_rmse(raw, c_gt, align=True, with_scale=True)))
+
+
+def loop_scale_truth(slam, Rs, ts, half_window: int = 3):
+    """Each loop's relative scale as ground truth has it: the raw
+    odometry's local scale (its camera-centre path over +-half_window
+    nodes against ground truth's) at the candidate node over that at the
+    current node, the ratio a perfect Umeyama fit would measure."""
+    frames = np.asarray(slam.pg_frame)
+    c = -np.einsum("nji,nj->ni", np.stack(slam.pg_raw_R), np.stack(slam.pg_raw_t))
+    c_gt = -np.einsum("nji,nj->ni", Rs[frames], ts[frames])
+
+    def local(k):
+        a, b = max(0, k - half_window), min(len(frames) - 1, k + half_window)
+        return np.linalg.norm(c[b] - c[a]) / max(np.linalg.norm(c_gt[b] - c_gt[a]), 1e-9)
+
+    return [float(local(lo["to"]) / local(lo["from"])) for lo in slam.loops]
 
 
 def render(frames: int = FRAMES):
@@ -101,8 +181,33 @@ def run_seed(imgs, Rs, ts, seed: int, device):
     return out
 
 
+def run_slam_seed(imgs, Rs, ts, seed: int, device):
+    """One MonoSLAM run over the orbit frames: its accuracy and loops."""
+    from viso_tpu_torch.slam.mono_full import MonoSLAM
+
+    slam = MonoSLAM(slam_config(seed), slam_loop_params(), device=device)
+    try:
+        for img in imgs:
+            slam.process(img)
+        slam.join()
+        nan = float("nan")
+        ate, ate_raw = slam_accuracy(slam, Rs, ts) if slam.pg_s else (nan, nan)
+        s_gt = loop_scale_truth(slam, Rs, ts)
+        return dict(seed=seed, ate_m=ate, ate_raw_m=ate_raw,
+                    loops=[(lo["from"], lo["to"], lo["inliers"], lo["s_rel"], g)
+                           for lo, g in zip(slam.loops, s_gt)],
+                    s_min=min(slam.pg_s, default=nan), s_max=max(slam.pg_s, default=nan),
+                    keyframes=sum(r.is_keyframe for r in slam.results),
+                    nodes=len(slam.pg_s), reinits=slam.num_reinits,
+                    hook_errors=len(slam.hook_errors))
+    finally:
+        slam.close()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--slam", action="store_true",
+                    help="the mono SLAM cell (MonoSLAM on the loop orbit)")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3, 4, 5])
     ap.add_argument("--frames", type=int, default=FRAMES)
     ap.add_argument("--device", default="cuda")
@@ -111,7 +216,7 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("mono_cell: no CUDA device (pass --device cpu to run on the CPU)")
     t0 = time.perf_counter()
-    imgs, Rs, ts = render(args.frames)
+    imgs, Rs, ts = (render_orbit if args.slam else render)(args.frames)
     print(f"rendered {len(imgs)} frames {H}x{W} (uint8) in {time.perf_counter() - t0:.1f} s",
           flush=True)
     if device.type == "cuda":
@@ -123,13 +228,26 @@ def main(argv=None) -> int:
     runs = []
     for seed in args.seeds:
         t0 = time.perf_counter()
-        r = run_seed(imgs, Rs, ts, seed, device)
+        if args.slam:
+            r = run_slam_seed(imgs, Rs, ts, seed, device)
+            print(f"seed {seed}: scale-aligned keyframe ATE {r['ate_m']:.6f} m after the "
+                  f"Sim(3) correction, {r['ate_raw_m']:.6f} m raw; {len(r['loops'])} loops "
+                  f"(from, to, inliers, s_rel, s_rel from ground truth) "
+                  f"{[(a, b, c, round(d, 4), round(g, 4)) for a, b, c, d, g in r['loops']]}; "
+                  f"node scales "
+                  f"{r['s_min']:.4f}-{r['s_max']:.4f}; {r['keyframes']} keyframes, "
+                  f"{r['nodes']} nodes, {r['reinits']} re-inits, {r['hook_errors']} hook "
+                  f"errors, {time.perf_counter() - t0:.1f} s [{where}]", flush=True)
+        else:
+            r = run_seed(imgs, Rs, ts, seed, device)
+            print(f"seed {seed}: scale-aligned ATE {r['ate_m']:.6f} m, scale drift "
+                  f"{r['scale_drift']:.3f}, end rotation error {r['rot_err_deg']:.3f} deg, "
+                  f"{r['keyframes']} keyframes, {r['reinits']} re-inits, first tracking "
+                  f"frame {r['first_tracking']}, {time.perf_counter() - t0:.1f} s [{where}]",
+                  flush=True)
         runs.append(r)
-        print(f"seed {seed}: scale-aligned ATE {r['ate_m']:.6f} m, scale drift "
-              f"{r['scale_drift']:.3f}, end rotation error {r['rot_err_deg']:.3f} deg, "
-              f"{r['keyframes']} keyframes, {r['reinits']} re-inits, first tracking frame "
-              f"{r['first_tracking']}, {time.perf_counter() - t0:.1f} s [{where}]", flush=True)
-    print(json.dumps({"device": where, "frames": len(imgs), "runs": runs}))
+    print(json.dumps({"device": where, "cell": "mono_slam" if args.slam else "mono",
+                      "frames": len(imgs), "runs": runs}))
     return 0
 
 

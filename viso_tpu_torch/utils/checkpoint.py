@@ -6,8 +6,9 @@ a JSON `_meta` record, with the same keys, so a checkpoint written by
 either package loads in the other. Descriptors are stored as float32
 (npz has no bfloat16) and restored to bfloat16 on the device.
 
-Stereo only: the monocular (Sim(3)) SLAM layer is not ported yet, and
-`load_slam` raises NotImplementedError for a monocular checkpoint.
+A SLAM checkpoint holds a StereoSLAM or a MonoSLAM (`kind` in `_meta`);
+a monocular one adds the Sim(3) graph's node scales (`pg_s`) and edge
+scale ratios (`edge_s`).
 """
 
 from __future__ import annotations
@@ -86,17 +87,24 @@ def _stack(rows, shape):
 
 
 def save_slam(path: str, slam, extra: dict | None = None):
-    """Full StereoSLAM checkpoint: map window, live pose and motion model,
-    pose graph and loop database. `load_slam` resumes a run that keeps
-    tracking and keeps closing loops against pre-checkpoint places.
+    """Full SLAM checkpoint (StereoSLAM or MonoSLAM): map window, live pose
+    and motion model, pose graph (with node scales and edge scale ratios
+    for the mono Sim(3) graph) and loop database. `load_slam` resumes a
+    run that keeps tracking and keeps closing loops against
+    pre-checkpoint places.
 
     Per-frame results recorded before the checkpoint are not stored
     (write the trajectory separately with save_trajectory); the resumed
     engine records from the checkpoint onward.
     """
+    from viso_tpu_torch.slam.mono_full import MonoSLAM
+
     slam.join()
     db = slam.loop_db
     edges = slam.pg_edges
+    mono = isinstance(slam, MonoSLAM)
+    # Mono edges are (i, j, s_ij, R, t, w), stereo ones (i, j, R, t, w).
+    rt = 3 if mono else 2
     arrays = _map_arrays(slam.map)
     arrays.update({
         "R": _host(slam.R), "t": _host(slam.t),
@@ -109,8 +117,8 @@ def save_slam(path: str, slam, extra: dict | None = None):
         "pg_frame": np.asarray(slam.pg_frame, np.int64),
         "edge_i": np.asarray([e[0] for e in edges], np.int64),
         "edge_j": np.asarray([e[1] for e in edges], np.int64),
-        "edge_R": _stack([e[2] for e in edges], (3, 3)),
-        "edge_t": _stack([e[3] for e in edges], (3,)),
+        "edge_R": _stack([e[rt] for e in edges], (3, 3)),
+        "edge_t": _stack([e[rt + 1] for e in edges], (3,)),
         "edge_w": np.asarray([e[-1] for e in edges], np.float32),
         "db_desc": _host(db.desc.float()),
         "db_desc_mask": _host(db.desc_mask),
@@ -121,6 +129,9 @@ def save_slam(path: str, slam, extra: dict | None = None):
         "db_seam_t": db.seam_t, "db_seam_r": db.seam_r,
         "db_insert_seq": db.insert_seq,
     })
+    if mono:
+        arrays["pg_s"] = np.asarray(slam.pg_s, np.float32)
+        arrays["edge_s"] = np.asarray([e[2] for e in edges], np.float32)
     arrays["_meta"] = _meta_array({
         "version": _FORMAT_VERSION,
         "num_levels": len(slam.map.kf_pyr),
@@ -131,7 +142,7 @@ def save_slam(path: str, slam, extra: dict | None = None):
         "rot_len": slam._rot_len,
         "seam_trans": slam._seam_trans,
         "seam_rot": slam._seam_rot,
-        "kind": "stereo",
+        "kind": "mono" if mono else "stereo",
         "db_total": db.total,
         "loops": slam.loops,
         "extra": extra or {},
@@ -140,20 +151,18 @@ def save_slam(path: str, slam, extra: dict | None = None):
 
 
 def load_slam(path: str, config, loop_params=None, *, device):
-    """Restore a StereoSLAM from a save_slam checkpoint onto `device`.
+    """Restore a StereoSLAM or MonoSLAM (by the checkpoint's `kind`) from a
+    save_slam checkpoint onto `device`.
 
     `config` / `loop_params` must match the capacities the checkpoint was
     written with. Returns (slam, extra_metadata).
     """
     from viso_tpu_torch.slam.full import StereoSLAM
+    from viso_tpu_torch.slam.mono_full import MonoSLAM
 
     data, meta = _read(path)
-    if meta.get("kind") == "mono":
-        raise NotImplementedError(
-            "monocular SLAM checkpoints need the Sim(3) SLAM layer, not "
-            "ported yet (ROADMAP.md Queue 1)"
-        )
-    slam = StereoSLAM(config, loop_params, device=device)
+    mono = meta.get("kind") == "mono"
+    slam = (MonoSLAM if mono else StereoSLAM)(config, loop_params, device=device)
 
     def dev(a):
         return torch.tensor(np.asarray(a), device=slam.device)
@@ -172,11 +181,15 @@ def load_slam(path: str, config, loop_params=None, *, device):
     slam.pg_R = list(data["pg_R"])
     slam.pg_t = list(data["pg_t"])
     slam.pg_frame = [int(f) for f in data["pg_frame"]]
-    slam.pg_edges = [
-        (int(data["edge_i"][k]), int(data["edge_j"][k]), data["edge_R"][k],
-         data["edge_t"][k], float(data["edge_w"][k]))
-        for k in range(len(data["edge_i"]))
-    ]
+
+    def edge(k):
+        s_ij = (float(data["edge_s"][k]),) if mono else ()
+        return (int(data["edge_i"][k]), int(data["edge_j"][k]), *s_ij, data["edge_R"][k],
+                data["edge_t"][k], float(data["edge_w"][k]))
+
+    slam.pg_edges = [edge(k) for k in range(len(data["edge_i"]))]
+    if mono:
+        slam.pg_s = [float(v) for v in data["pg_s"]]
     slam._seam_trans = meta.get("seam_trans", 0.0)
     slam._seam_rot = meta.get("seam_rot", 0.0)
     slam.loops = list(meta["loops"])
