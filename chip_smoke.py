@@ -82,7 +82,23 @@ raises and exits non-zero:
      card and the CPU agreeing (MONO_SLAM_HOLD_LOG_TOL,
      MONO_SLAM_SOLVE_TOL); and K1 launched from the digest, LK and
      photometric BA;
- 10. one JSON line with the kernel records (`launches`: the kernel's
+ 10. the distributed window BA (`viso_tpu_torch/parallel/dist_ba.py`):
+     (a) `tools/bench_dist_ba`'s problem (C=16, L=65,536, 10 LM
+     iterations) over an NCCL group of one rank, bit-equal to
+     `ba.solve_impl`, with the bytes and calls handed to all_reduce per LM
+     iteration (39,948 bytes in 2 calls), the all-reduce ms per iteration
+     (CUDA events) and LM iters/s; (b) the same problem over 2 and 4
+     spawned gloo ranks sharing the card (NCCL takes one rank per GPU),
+     each within R 1e-4, t 1e-3, points 1e-2, cost 1e-3 relative of the
+     single-device solve and every rank equal, the same numbers labelled
+     "ranks sharing one card" (not a scaling number); (c) the mesh
+     dryrun's StereoSLAM (`__graft_entry__.py` `dryrun_multichip`: 240x320,
+     C=8, L=2048, 10 frames) with distribute_ba on the NCCL group, under
+     the dryrun's assertions and within 1e-5 m of the same run without
+     distribute_ba, K1 launched; (d) `multiprocess_ba --engine`'s StereoVO
+     over 2 gloo ranks on the card, each within 0.05 m of its single-rank
+     run, ATEs below 0.08 m, ranks equal, K1 launched;
+ 11. one JSON line with the kernel records (`launches`: the kernel's
      launches summed over the main paths it is on, each counted from 0
      just before its path and read just after; the times: K1 summed over
      a tracked frame's 6 calls, K2 over the tool's 12), then the last
@@ -172,6 +188,17 @@ CLI_FRAMES = 30
 # tests/test_run_cli.py's bounds on the summary's ATE.
 CLI_ATE_LIMITS = {"stereo": 0.2, "slam": 0.3, "mono": 2.0, "mono-slam": 2.0}
 
+# Phase 10: bench_dist_ba's problem (C=16, L=65,536, 10 LM iterations,
+# seed 0), timed over bench_dist_ba.REPS solves; the solver tolerances of
+# tests/test_dist_ba.py for ranks against the single-device solve (the
+# cost's absolute floor: the problem's observations are exact, so its
+# final cost ends near 0); the dryrun's centres with and without
+# distribute_ba at world size 1 (bit-equal solves: any gap is a fault);
+# the spawned ranks' time limit.
+DIST_CAMS, DIST_LANDMARKS, DIST_ITERS = 16, 65536, 10
+DIST_R_TOL, DIST_T_TOL, DIST_P_TOL, DIST_COST_RTOL, DIST_COST_ATOL = 1e-4, 1e-3, 1e-2, 1e-3, 1e-9
+DIST_SLAM_GAP_M = 1e-5
+DIST_SPAWN_TIMEOUT_S = 120.0
 # The timings summed over a tracked frame's calls (K1) or the tool's sweep (K2).
 FRAME_KEYS = ("device_ms", "host_ms", "floor_ms", "bound_ms", "library_ms", "plain_ms",
               "entry_ms")
@@ -899,6 +926,153 @@ def cli_phase(torch, extract, card):
     return launches
 
 
+def dist_phase(torch, extract, dev, card):
+    """Phase 10. The distributed window BA (`parallel/dist_ba.py`) on the
+    card: (a) bench_dist_ba's problem over an NCCL group of one rank,
+    bit-equal to `ba.solve_impl`; (c) the mesh dryrun's StereoSLAM with
+    distribute_ba on that group, against the same run without; (b) 2 and
+    4 gloo ranks sharing the card, each within the solver tolerances of
+    the single-device solve and equal to each other; (d) `multiprocess_ba
+    --engine`'s StereoVO over 2 gloo ranks. Returns K1's launches in (c)
+    and (d)."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from viso_tpu_torch.backend import ba
+    from viso_tpu_torch.parallel import dist_ba, mesh as mesh_mod
+    from viso_tpu_torch.tools import bench_dist_ba, multiprocess_ba
+    from viso_tpu_torch.utils import metrics
+
+    C, L, iters = DIST_CAMS, DIST_LANDMARKS, DIST_ITERS
+    prob = bench_dist_ba.build_problem(C, L, dev)
+    params = ba.BAParams(iters=iters, num_fixed=2)
+    out_1, info_1 = ba.solve_impl(prob, params)
+    t0 = time.perf_counter()
+    for _ in range(bench_dist_ba.REPS):
+        ba.solve_impl(prob, params)
+    torch.cuda.synchronize()
+    single_rate = bench_dist_ba.REPS * iters / (time.perf_counter() - t0)
+    print(f"phase 10 problem: C={C} L={L} {iters} LM iterations, "
+          f"{int(info_1['num_obs'])} observations, cost {float(info_1['initial_cost']):.6g} -> "
+          f"{float(info_1['final_cost']):.6g}; ba.solve_impl {single_rate:.3f} LM iters/s "
+          f"[{card}]")
+
+    with tempfile.TemporaryDirectory(prefix="viso_nccl_") as tmp:
+        dist.init_process_group(bench_dist_ba.backend_for(1, dev),
+                                init_method=f"file://{tmp}/store", rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=60))
+        try:
+            # (a) NCCL, world size 1.
+            mesh = mesh_mod.make_mesh(device=dev)
+            solver = dist_ba.make_sharded_solver(mesh, params)
+            out_s, info_s = solver(prob)
+            equal = all(torch.equal(getattr(out_s, k), getattr(out_1, k))
+                        for k in ("R", "t", "points")) and all(
+                torch.equal(info_s[k], info_1[k]) for k in info_1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(bench_dist_ba.REPS):
+                solver(prob)
+            torch.cuda.synchronize()
+            rate = bench_dist_ba.REPS * iters / (time.perf_counter() - t0)
+            calls, nbytes, ms = solver.stats.per_iter(iters)
+            print(f"(a) {dist.get_backend()} world 1: bit-equal to ba.solve_impl {equal}, "
+                  f"{nbytes:.0f} all-reduce bytes and {calls:.0f} calls per LM iteration "
+                  f"(psum_bytes_per_iter {dist_ba.psum_bytes_per_iter(C)}), all-reduce "
+                  f"{ms:.6f} ms per iteration (CUDA events), {rate:.3f} LM iters/s [{card}]")
+            if not (equal and nbytes == dist_ba.psum_bytes_per_iter(C) and calls == 2):
+                raise AssertionError("(a): the NCCL world-1 solve is not ba.solve_impl's")
+
+            # (c) the mesh dryrun's StereoSLAM on the NCCL group.
+            frames, Rs, ts = multiprocess_ba.dryrun_frames()
+            centres = {}
+            for distribute in (False, True):
+                vo = multiprocess_ba.dryrun_slam(dev, distribute_ba=distribute,
+                                                 stats_deterministic=True)
+                ba_calls = []
+                program = vo._ba_program
+
+                def counted(*a, _program=program, _calls=ba_calls):
+                    _calls.append(1)
+                    return _program(*a)
+
+                vo._ba_program = counted
+                extract.launch.launches = 0
+                t0 = time.perf_counter()
+                for il, ir in frames:
+                    vo.process(il, ir)
+                vo.join()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches_c = extract.launch.launches
+                t_fin = vo.t.cpu().numpy()
+                R_est, t_est = vo.trajectory()
+                centres[distribute] = metrics.camera_centers(R_est, t_est)
+                nodes, kfs, errors = len(vo.pg_raw_R), len(vo.kf_order), vo.hook_errors
+                on_group = distribute and vo._ba_mesh.group is not None
+                vo.close()
+                ate = metrics.ate_rmse(centres[distribute], metrics.camera_centers(Rs, ts),
+                                       align=True, with_scale=False)
+                print(f"(c) dryrun StereoSLAM distribute_ba={distribute}: {len(frames)} frames "
+                      f"in {wall:.2f} s, {nodes} nodes, {kfs} keyframes, {len(ba_calls)} window "
+                      f"BAs (on the NCCL group: {on_group}), ATE {ate:.6f} m, K1 launches "
+                      f"{launches_c} [{card}]")
+                # __graft_entry__.py dryrun_multichip's assertions.
+                if not (nodes >= 3 and np.isfinite(t_fin).all() and ba_calls and kfs >= 3
+                        and abs(float(t_fin[2])) > 0.2 and not errors):
+                    raise AssertionError(f"(c) distribute_ba={distribute}: nodes {nodes}, "
+                                         f"t {t_fin}, BAs {len(ba_calls)}, errors {errors}")
+            gap = float(np.abs(centres[True] - centres[False]).max())
+            print(f"(c) centres with and without distribute_ba: max gap {gap:.3g} m "
+                  f"(limit {DIST_SLAM_GAP_M})")
+            if not (on_group and gap <= DIST_SLAM_GAP_M and launches_c > 0):
+                raise AssertionError(f"(c): gap {gap} m, K1 launches {launches_c}")
+        finally:
+            dist.destroy_process_group()
+
+    # (b) gloo ranks sharing the card.
+    host = {k: getattr(out_1, k).cpu().numpy() for k in ("R", "t", "points")}
+    tol = {"R": DIST_R_TOL, "t": DIST_T_TOL, "points": DIST_P_TOL}
+    for world in (2, 4):
+        t0 = time.perf_counter()
+        rec, ranks = bench_dist_ba.run_world(world, dev, C, L, iters,
+                                             timeout=DIST_SPAWN_TIMEOUT_S)
+        gaps = {k: max(float(np.abs(r[k] - host[k]).max()) for r in ranks) for k in tol}
+        same = all(np.array_equal(r[k], ranks[0][k]) for r in ranks for k in tol)
+        cost_gap = max(abs(r["final_cost"] - float(info_1["final_cost"])) for r in ranks)
+        print(f"(b) {rec['backend']} world {world}, ranks sharing one card: "
+              f"{rec['allreduce_bytes_per_iter']:.0f} all-reduce bytes and "
+              f"{rec['allreduce_calls_per_iter']:.0f} calls per LM iteration, all-reduce "
+              f"{rec['allreduce_ms_per_iter']:.6f} ms per iteration (CUDA events), "
+              f"{rec['lm_iters_per_s']:.3f} LM iters/s, {rec['landmarks_per_rank']} landmarks "
+              f"per rank; gaps to the single solve R {gaps['R']:.3g} t {gaps['t']:.3g} points "
+              f"{gaps['points']:.3g} cost {cost_gap:.3g} (final {rec['final_cost']:.6g}); "
+              f"ranks equal {same}; {time.perf_counter() - t0:.1f} s [{card}]")
+        if not (same and rec["ranks_share_one_card"]
+                and rec["allreduce_bytes_per_iter"] == dist_ba.psum_bytes_per_iter(C)
+                and all(gaps[k] <= tol[k] for k in tol)
+                and cost_gap <= DIST_COST_RTOL * abs(float(info_1["final_cost"])) + DIST_COST_ATOL):
+            raise AssertionError(f"(b) world {world}: {rec}, gaps {gaps}, cost {cost_gap}")
+
+    # (d) multiprocess_ba --engine over 2 gloo ranks on the card.
+    t0 = time.perf_counter()
+    ranks = multiprocess_ba.launch(multiprocess_ba.engine_rank, 2, device=dev,
+                                   timeout=DIST_SPAWN_TIMEOUT_S)
+    launches_d = sum(r["k1_launches"] for r in ranks)
+    same = all(np.array_equal(r["c_dist"], ranks[0]["c_dist"]) for r in ranks)
+    for r in ranks:
+        print(f"(d) engine rank {r['rank']} of {r['world']} (gloo, one card): ATE single "
+              f"{r['ate_single']:.6f} m, distributed {r['ate_dist']:.6f} m, max centre gap "
+              f"{r['max_diff']:.6f} m, K1 launches {r['k1_launches']} [{card}]")
+    print(f"(d) ranks equal {same}; {time.perf_counter() - t0:.1f} s")
+    if not (same and all(multiprocess_ba.engine_ok(r) for r in ranks)
+            and all(r["k1_launches"] > 0 for r in ranks)):
+        raise AssertionError(f"(d): {ranks}")
+    return launches_c + launches_d
+
+
 def main() -> int:
     # The run uses one card: show torch only the first visible one, so the
     # device count in the last line is the number of cards the run used.
@@ -1069,7 +1243,12 @@ def main() -> int:
                                    dev, card)
     print(f"phase 9 wall {time.perf_counter() - t0:.1f} s")
 
-    # Phase 10: results.
+    # Phase 10: the distributed window BA.
+    t0 = time.perf_counter()
+    dist_k1 = dist_phase(torch, extract, dev, card)
+    print(f"phase 10 wall {time.perf_counter() - t0:.1f} s")
+
+    # Phase 11: results.
     print(f"total wall {time.perf_counter() - t_start:.1f} s")
     # ms, plain_ms, bound_ms, library_ms: device times (CUDA graph replay),
     # K1 summed over a tracked frame's 6 calls, K2 over the tool's 12 calls.
@@ -1086,7 +1265,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         record("extract_windows", "viso_tpu_torch/csrc/extract_windows.cu",
                "viso_tpu/geometry/extract_pallas.py:64",
-               launches + slam_k1 + mono_k1 + cli_k1 + mono_slam_k1,
+               launches + slam_k1 + mono_k1 + cli_k1 + mono_slam_k1 + dist_k1,
                max_err, k1_frame),
         record("extract_aligned", "viso_tpu_torch/csrc/extract_aligned.cu",
                "tools/bench_extract.py:37", k2["launches"], k2["max_abs_err"], k2),

@@ -298,3 +298,55 @@ def test_mono_call_sites_launch_the_kernel(rng, cuda_device):
     assert n_c == 0 and n_g == 1 and w_g.shape == (C * L, 16, 16)
     same = (b_c == b_g).all(dim=-1)
     assert same.float().mean() > 0.99 and torch.equal(w_c[same], w_g[same])
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_sharded_solve_is_bit_equal(cuda_device, tmp_path):
+    """The landmark-sharded BA over an NCCL group of one rank on the card:
+    bit-equal to `ba.solve_impl`, handing `all_reduce` psum_bytes_per_iter
+    bytes in 2 calls per LM iteration, timed by CUDA events."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from viso_tpu_torch.backend import ba
+    from viso_tpu_torch.parallel import dist_ba, mesh as mesh_mod
+    from viso_tpu_torch.tools import bench_dist_ba
+
+    prob = bench_dist_ba.build_problem(16, 4096, cuda_device)
+    params = ba.BAParams(iters=10, num_fixed=2)
+    out_1, info_1 = ba.solve_impl(prob, params)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = mesh_mod.make_mesh(device=cuda_device)
+        assert mesh.size == 1 and mesh.group is not None
+        out_s, info_s = dist_ba.solve_sharded(prob, params, mesh)
+        calls, nbytes, ms = dist_ba.make_sharded_solver(mesh, params).stats.per_iter(10)
+    finally:
+        dist.destroy_process_group()
+    for name in ("R", "t", "points"):
+        assert torch.equal(getattr(out_s, name), getattr(out_1, name)), name
+    for key in info_1:
+        assert torch.equal(info_s[key], info_1[key]), key
+    assert dist_ba.psum_bytes_per_iter(16) == 39_948 and (calls, nbytes) == (2, 39_948)
+    assert ms is not None and ms > 0
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card(cuda_device):
+    """2 spawned gloo ranks whose tensors live on the one card (NCCL takes
+    one rank per GPU): each rank within the solver tolerances of its own
+    single-rank solve (R 1e-4, t 1e-3, points 1e-2, cost 1e-3 relative),
+    and both ranks equal."""
+    from viso_tpu_torch.tools import multiprocess_ba
+
+    ranks = multiprocess_ba.launch(multiprocess_ba.ba_rank, 2, args=(None, 10, 2),
+                                   device="cuda")
+    for r in ranks:
+        assert multiprocess_ba.ba_ok(r)
+        np.testing.assert_allclose(r["R"], r["local_R"], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(r["t"], r["local_t"], rtol=0, atol=1e-3)
+        np.testing.assert_allclose(r["points"], r["local_points"], rtol=0, atol=1e-2)
+        for key in ("R", "t", "points"):
+            np.testing.assert_array_equal(r[key], ranks[0][key])

@@ -204,10 +204,16 @@ def test_programs_match_on_the_reference_map(runs, frames):
 
 
 def test_unported_backends_raise():
-    vo = StereoVO(VOConfig(**{**CFG, "distribute_ba": True}), device="cpu")
+    """The backends the engine refuses, as the JAX engine does: the
+    photometric window BA cannot be distributed, and a name outside the
+    three raises."""
+    vo = StereoVO(VOConfig(**{**CFG, "distribute_ba": True, "ba_backend": "photometric"}),
+                  device="cpu")
     vo.kf_order = [0, 1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="reprojection backend"):
         vo._run_window_ba([0])
+    with pytest.raises(ValueError, match="unknown ba_backend"):
+        StereoVO(VOConfig(**{**CFG, "ba_backend": "dense"}), device="cpu")._run_window_ba([0])
     with pytest.raises(TypeError):
         StereoVO(VOConfig(**CFG))      # the device is explicit
 

@@ -162,7 +162,8 @@ def test_port_imports_without_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert {'viso_tpu_torch.slam.full', 'viso_tpu_torch.tools.bench_extract', "
-        "'viso_tpu_torch.utils.checkpoint'} <= set(names), names\n"
+        "'viso_tpu_torch.utils.checkpoint', 'viso_tpu_torch.parallel.dist_ba'} <= set(names), "
+        "names\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'viso_tpu.')) "
         "for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"

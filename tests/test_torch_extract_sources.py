@@ -174,12 +174,16 @@ def test_k1_case_table_and_frame_bound(monkeypatch):
     the CLI's is 16,384 from (8, 120, 160)."""
     from viso_tpu_torch.tools import bench_k1
 
-    assert len(bench_k1.MAIN_PATH_CASES) == 49
+    assert len(bench_k1.MAIN_PATH_CASES) == 60
     for name, shape, (h, w), n, source in bench_k1.MAIN_PATH_CASES:
         assert h <= shape[-2] and w <= shape[-1] and n > 0, name
         assert source in (False, "two", "stack") and bool(source) == (len(shape) == 3), name
         if source == "two":
-            assert shape[0] == (2 if "lk" in name else 9) and n % 2 == 0, name
+            # LK: reference and current image; align: the keyframe stack
+            # (8 keyframes, 4 in the multi-process engine run) and the
+            # current image.
+            stack = 2 if "lk" in name else 5 if name.startswith("mp ") else 9
+            assert shape[0] == stack and n % 2 == 0, name
     assert len(bench_k1.TRACK_CASES) == 6
     cases = {c[0]: c for c in bench_k1.MAIN_PATH_CASES}
     frame = sum(t_bench.bound_ms(cases[n][3], *cases[n][2]) for n in bench_k1.TRACK_CASES)

@@ -147,11 +147,26 @@ def test_run_cli_without_matplotlib(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv, err, match", [
-    (["--mode", "stereo", "--distribute"], NotImplementedError, "ROADMAP"),
+    # Without torchrun the world is this one process: a group of 3 is refused.
+    (["--mode", "stereo", "--distribute", "--mesh-devices", "3", "--max-frames", "3"],
+     ValueError, "world size 1"),
 ])
 def test_run_cli_unported_modes_raise(tmp_path, argv, err, match):
     with pytest.raises(err, match=match):
         run.main(argv + ["--out-dir", str(tmp_path), "--device", "cpu"])
+
+
+def test_run_cli_distribute_stereo(tmp_path, k1_calls):
+    """`--distribute` in stereo mode: the window BA solved landmark-sharded
+    over a world of one (no torchrun), the summary as the plain run's."""
+    out = str(tmp_path / "dist")
+    summary = run.main(["--dataset", "synthetic", "--mode", "stereo", "--max-frames", "8",
+                        "--distribute", "--out-dir", out, "--device", "cpu"])
+    plain = run.main(["--dataset", "synthetic", "--mode", "stereo", "--max-frames", "8",
+                      "--out-dir", str(tmp_path / "plain"), "--device", "cpu"])
+    assert summary["ate_rmse_m"] == plain["ate_rmse_m"] < 0.2
+    assert summary["keyframes"] >= 2 and len(_lines(os.path.join(out, "frames.jsonl"))) == 8
+    _in_case_table(k1_calls)
 
 
 def test_run_cli_needs_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):

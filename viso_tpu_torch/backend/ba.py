@@ -1,11 +1,19 @@
 """Sliding-window bundle adjustment: Levenberg-Marquardt + Schur
-complement (port of `viso_tpu/backend/ba.py`, single device).
+complement (port of `viso_tpu/backend/ba.py`).
 
 Dense (camera x landmark) observation grid, closed-form batched 3x3
 landmark inverses for the marginalization, a (6C x 6C) reduced camera
 solve by Cholesky, and branchless LM (fixed iteration count, masked
 accept/reject). Per-observation tensors keep landmarks in the last
 ("L-minor") dimension, as the reference lays them out.
+
+Landmark-sharded mode (`parallel/dist_ba.py`): `compute_cost`,
+`_lm_iteration`, `schur_solve` and `solve_impl` take `reduce`, a callable
+that sums a list of tensors in place over the landmark group (the
+reference's `axis_name` and `psum`). Each LM iteration hands it two
+lists: the camera blocks, Schur cross terms and the folded cost inside
+`schur_solve`, then (cost, n_obs) of the accept test. Everything
+landmark-indexed stays local; the 6C x 6C solve is replicated.
 
 Known reference fault, reproduced on purpose: when the reduced system
 is numerically indefinite in float32, the Cholesky factorization fails
@@ -114,8 +122,11 @@ def _valid(prob: BAProblem):
     return prob.obs_mask & prob.cam_mask[:, None] & prob.point_mask[None, :]
 
 
-def compute_cost(prob: BAProblem, params: BAParams = BAParams(), trunc=None):
-    """Total robust (Tukey) reprojection cost and the valid-observation count."""
+def compute_cost(prob: BAProblem, params: BAParams = BAParams(), trunc=None, reduce=None):
+    """Total robust (Tukey) reprojection cost and the valid-observation count.
+
+    With `reduce`, both are summed over the landmark group in one call;
+    the count travels as a float32 (exact up to 2^24 observations)."""
     r, ok, _ = _project_residuals(
         prob.R, prob.t, prob.points.T, prob.obs_uv.permute(0, 2, 1),
         _valid(prob), params.min_depth,
@@ -123,12 +134,19 @@ def compute_cost(prob: BAProblem, params: BAParams = BAParams(), trunc=None):
     r_norm = torch.linalg.norm(r, dim=1)
     trunc = params.trunc if trunc is None else trunc
     rho = robust.tukey_cost(r_norm, trunc)
-    return torch.sum(torch.where(ok, rho, 0.0)), torch.sum(ok)
+    cost, n_obs = torch.sum(torch.where(ok, rho, 0.0)), torch.sum(ok)
+    if reduce is not None:
+        n_obs_f = n_obs.to(cost.dtype)
+        reduce([cost, n_obs_f])
+        n_obs = torch.round(n_obs_f).to(n_obs.dtype)
+    return cost, n_obs
 
 
-def _lm_iteration(R, t, points, prob: BAProblem, lam, trunc, params: BAParams, C):
+def _lm_iteration(R, t, points, prob: BAProblem, lam, trunc, params: BAParams, C,
+                  reduce=None):
     """One LM step: normal equations, Schur reduction, solve, update.
-    Also returns the robust cost at the input state."""
+    Also returns the robust cost at the input state (summed over the
+    landmark group with the camera blocks, when `reduce` is given)."""
     r, ok, p_cam = _project_residuals(
         R, t, points.T, prob.obs_uv.permute(0, 2, 1), _valid(prob),
         params.min_depth,
@@ -158,17 +176,24 @@ def _lm_iteration(R, t, points, prob: BAProblem, lam, trunc, params: BAParams, C
     if prob.cam_fixed is not None:
         free = free & ~prob.cam_fixed
 
-    delta_c, delta_p = schur_solve(U, V, W, g_c, g_p, lam, prob.point_mask, free)
+    delta_c, delta_p, cost = schur_solve(
+        U, V, W, g_c, g_p, lam, prob.point_mask, free, reduce=reduce, fold_scalar=cost
+    )
     R_new, t_new = se3.left_update(delta_c, R, t)
     return R_new, t_new, points + delta_p.T, cost
 
 
-def schur_solve(U, V, W, g_c, g_p, lam, point_mask, free):
+def schur_solve(U, V, W, g_c, g_p, lam, point_mask, free, reduce=None, fold_scalar=None):
     """Damped Schur-complement solve of a 6/3 block system, slab form.
 
     U (C, 6, 6); V (3, 3, L) planes; W three (C, 6, L) slabs; g_c (C, 6);
     g_p (3, L); free (C,) bool. Returns (delta_c (C, 6), delta_p (3, L)),
-    zero for masked slots.
+    zero for masked slots, and `fold_scalar` after them when one is given.
+
+    With `reduce`, ONE call sums U, g_c, the Schur cross terms and
+    `fold_scalar` (the caller's local cost: folding it here spares a
+    collective per LM iteration) over the landmark group; the damping
+    comes after it, so it sees the global camera blocks.
     """
     C = U.shape[0]
     dtype, dev = U.dtype, U.device
@@ -186,6 +211,8 @@ def schur_solve(U, V, W, g_c, g_p, lam, point_mask, free):
     b_cross = torch.stack(
         [torch.einsum("cil,l->ci", Y[j], g_p[j]) for j in range(3)]
     ).sum(0)
+    if reduce is not None:
+        reduce([U, g_c, S_cross, b_cross] + ([] if fold_scalar is None else [fold_scalar]))
 
     diag = torch.arange(C, device=dev)
     U_d = U + lam * (torch.einsum("cii->c", U) / 6.0 + 1e-6)[:, None, None] * eye6
@@ -213,26 +240,34 @@ def schur_solve(U, V, W, g_c, g_p, lam, point_mask, free):
     )                                                    # (3, L)
     delta_p = torch.einsum("ijl,jl->il", V_inv, rhs)
     delta_p = torch.where(torch.isfinite(delta_p), delta_p, 0.0)
-    return delta_c, delta_p * point_mask[None, :]
+    if fold_scalar is None:
+        return delta_c, delta_p * point_mask[None, :]
+    return delta_c, delta_p * point_mask[None, :], fold_scalar
 
 
-def solve_impl(prob: BAProblem, params: BAParams = BAParams()):
-    """Run LM for `params.iters` iterations. Returns (BAProblem, info)."""
+def solve_impl(prob: BAProblem, params: BAParams = BAParams(), reduce=None):
+    """Run LM for `params.iters` iterations. Returns (BAProblem, info).
+
+    `reduce` runs the landmark-sharded mode (see the module docstring):
+    `prob` holds this rank's landmark block and the replicated cameras,
+    and the result is this rank's block. Two reductions per LM
+    iteration, plus one each for the initial and the final cost."""
     C = prob.R.shape[0]
     dtype, dev = prob.R.dtype, prob.R.device
     # Graduated non-convexity schedule for the truncation radius.
     truncs = params.trunc * params.anneal ** torch.linspace(
         1.0, 0.0, params.iters, dtype=dtype, device=dev
     )
-    cost0, n_obs = compute_cost(prob, params)
+    cost0, n_obs = compute_cost(prob, params, reduce=reduce)
     R, t, points = prob.R, prob.t, prob.points
     lam = torch.full((), params.lam0, dtype=dtype, device=dev)
     history = []
     for i in range(params.iters):
         trunc = truncs[i]
-        R_n, t_n, p_n, cost = _lm_iteration(R, t, points, prob, lam, trunc, params, C)
+        R_n, t_n, p_n, cost = _lm_iteration(R, t, points, prob, lam, trunc, params, C,
+                                             reduce)
         new_cost, _ = compute_cost(
-            prob._replace(R=R_n, t=t_n, points=p_n), params, trunc
+            prob._replace(R=R_n, t=t_n, points=p_n), params, trunc, reduce
         )
         accept = new_cost < cost
         R = torch.where(accept, R_n, R)
@@ -244,7 +279,7 @@ def solve_impl(prob: BAProblem, params: BAParams = BAParams()):
             torch.clamp(lam * params.lam_up, max=1e6),
         )
         history.append(torch.minimum(new_cost, cost))
-    cost, _ = compute_cost(prob._replace(R=R, t=t, points=points), params)
+    cost, _ = compute_cost(prob._replace(R=R, t=t, points=points), params, reduce=reduce)
     info = {
         "initial_cost": cost0,
         "final_cost": cost,

@@ -1,5 +1,6 @@
 """Sparse direct (photometric) pose estimation against frozen templates
-(port of `viso_tpu/ops/direct.py`, the templated path the engine runs).
+(port of `viso_tpu/ops/direct.py`: the templated path the engine runs, and
+`estimate_pose`).
 
 Multi-level coarse-to-fine Gauss-Newton on SE(3) with 8x8-patch
 photometric residuals. Templates (patches + frozen Jacobians) are built
@@ -193,6 +194,18 @@ def _level_pass_cached(img_cur, tmpl: LevelTemplate, points_w,
     best_t = torch.where(improved, t, best_t)
     best_cost = torch.minimum(cost, best_cost)
     return best_R, best_t, best_cost
+
+
+def estimate_pose(pyr_ref, pyr_cur, R_ref, t_ref, points_w, point_mask,
+                  intr: cam_mod.Intrinsics, R0, t0, params: DirectParams = DirectParams()):
+    """Multi-level direct pose estimation of the current frame against a
+    reference frame (viso.cpp:760-766): `build_templates` from the
+    reference pyramid at its world->camera pose (R_ref, t_ref), then
+    `estimate_pose_templated` from the initial guess (R0, t0).
+    points_w (N, 3) world points, point_mask (N,). Returns (R, t,
+    final_cost)."""
+    templates = build_templates(pyr_ref, R_ref, t_ref, points_w, point_mask, intr, params)
+    return estimate_pose_templated(templates, pyr_cur, points_w, intr, R0, t0, params)
 
 
 def _level_points(points_w, point_mask, level: int):

@@ -11,6 +11,15 @@ summary, where matplotlib is not installed), a 3-D map viewer (HTML) and,
 when the dataset ships ground truth, ATE/RPE. The engine runs on
 `--device` (default `cuda`); without a CUDA device the run stops unless
 `--device cpu` is given.
+
+`--distribute` solves the window BA landmark-sharded over the
+`torch.distributed` world (north-star config 5). Under `torchrun`
+(`WORLD_SIZE` set) the runner joins the group itself, NCCL for CUDA with
+one card per rank, gloo for the CPU, and writes rank r's outputs into
+`--out-dir/rank<r>` (rank 0's into `--out-dir`); otherwise the world is
+this one process:
+
+  torchrun --nproc-per-node 2 -m viso_tpu_torch.run --distribute --mode stereo
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # Modes that step one image per frame (and align their ATE with a scale),
 # and modes with a loop layer (a full SLAM checkpoint).
@@ -62,7 +72,13 @@ def build_engine(seq, args, device):
         max_keyframes=args.max_keyframes,
         fast_threshold=args.fast_threshold,
         ba_backend=args.ba_backend,
+        distribute_ba=args.distribute,
+        mesh_devices=args.mesh_devices,
     )
+    if args.distribute and dist.is_initialized() and dist.get_world_size() > 1:
+        # Every rank must make the same keyframe decisions: consume the
+        # per-frame stats at a fixed lag, not when they happen to land.
+        cfg = dataclasses.replace(cfg, stats_deterministic=True)
     if args.init_disparity_px:
         cfg = dataclasses.replace(cfg, disparity_squared_thresh=args.init_disparity_px ** 2)
     if args.detect_levels:
@@ -89,6 +105,19 @@ def _device(name: str):
             f"--device {name}: no CUDA device is available (pass --device cpu "
             "to run on the CPU)"
         )
+    return device
+
+
+def _join_group(device):
+    """Under torchrun: join the world (NCCL on CUDA, one card per local
+    rank; gloo on the CPU) and return this rank's device. Returns None
+    outside torchrun."""
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return None
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
     return device
 
 
@@ -155,7 +184,10 @@ def main(argv=None):
     # for stereo and slam.
     ap.add_argument("--ba-backend", choices=["auto", "reprojection", "photometric"],
                     default="auto")
+    # Distributed window BA over the torch.distributed world (see the
+    # module docstring); --mesh-devices 0 = the whole world.
     ap.add_argument("--distribute", action="store_true")
+    ap.add_argument("--mesh-devices", type=int, default=0)
     ap.add_argument("--height", type=int, default=0)
     ap.add_argument("--width", type=int, default=0)
     # Multi-scale FAST levels (0 = config default of 3; 1 = single-scale).
@@ -177,11 +209,18 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.distribute:
-        raise NotImplementedError(
-            "--distribute is not ported yet (ROADMAP.md Queue 1, 'Distributed BA')"
-        )
     device = _device(args.device)
+    joined = _join_group(device) if args.distribute else None
+    try:
+        return _run(args, joined or device)
+    finally:
+        if joined is not None:
+            dist.destroy_process_group()
+
+
+def _run(args, device):
+    if dist.is_initialized() and dist.get_rank() > 0:
+        args.out_dir = os.path.join(args.out_dir, f"rank{dist.get_rank()}")
 
     from viso_tpu_torch.utils import checkpoint, metrics, viz
     from viso_tpu_torch.utils import logging as vlog

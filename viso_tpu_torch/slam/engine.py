@@ -26,8 +26,15 @@ monocular bootstrap reads its gates on the host, as the reference does
 (`MonocularVO._try_initialize`). All shapes are static across frames.
 
 `BaseVO._post_keyframe` is the keyframe hook of the SLAM layer
-(`slam/full.py`); here it is a no-op. Not ported yet (see ROADMAP.md):
-distributed BA, which raises NotImplementedError.
+(`slam/full.py`); here it is a no-op.
+
+Distributed window BA (`distribute_ba`, north-star config 5): the ba
+program solves the window landmark-sharded over the `torch.distributed`
+world (`parallel/dist_ba.py`): camera blocks replicated, landmarks and
+their Schur marginalization rank-local, the reduced camera system summed
+with `all_reduce`. Every other program runs replicated on each rank's own
+device. Each rank must make the same keyframe decisions, so a run of more
+than one rank needs `stats_deterministic` or `kf_min_gap == kf_max_gap`.
 """
 
 from __future__ import annotations
@@ -108,7 +115,10 @@ class VOConfig:
     ba_backend: str = "auto"
     photo_ba_level: int = 1
     photo_ba_huber: float = 12.0
+    # Distributed window BA over the torch.distributed world (reprojection
+    # backend only); mesh_devices 0 = the whole world, the only group.
     distribute_ba: bool = False
+    mesh_devices: int = 0
 
     # Stereo
     max_disparity: int = 128
@@ -199,6 +209,8 @@ class BaseVO:
         # in _last_track; pulling them is the caller's choice and cost.
         self.debug_overlay = False
         self._last_track = None
+        if config.distribute_ba:
+            self._mesh()   # a group the run cannot use fails here, not at a keyframe
 
     # -- helpers -------------------------------------------------------
     def _next_kf_slot_peek(self) -> int:
@@ -378,14 +390,38 @@ class BaseVO:
         b = self.cfg.ba_backend
         if b == "auto":
             b = self._default_ba_backend
-        if self.cfg.distribute_ba:
-            raise NotImplementedError(
-                "distribute_ba is not ported yet (ROADMAP.md Queue 1, "
-                "'Distributed BA')"
-            )
         if b not in ("reprojection", "photometric"):
             raise ValueError(f"unknown ba_backend {b!r}")
+        if self.cfg.distribute_ba:
+            if b == "photometric" and self.cfg.ba_backend != "auto":
+                raise ValueError("distribute_ba supports only the reprojection backend")
+            b = "reprojection"
         return b
+
+    # Whether the engine may run its window BA over more than one rank
+    # (the SLAM loop layer lands corrections at times that differ per rank).
+    _multi_rank_ba = True
+
+    def _mesh(self):
+        """The landmark group of the distributed window BA, built once."""
+        if getattr(self, "_ba_mesh", None) is None:
+            from viso_tpu_torch.parallel import mesh as mesh_mod
+
+            cfg = self.cfg
+            mesh = mesh_mod.make_mesh(cfg.mesh_devices or None, device=self.device)
+            if mesh.size > 1 and not self._multi_rank_ba:
+                raise ValueError(
+                    f"{type(self).__name__} runs distribute_ba at world size 1 only"
+                )
+            if mesh.size > 1 and not (cfg.stats_deterministic
+                                      or cfg.kf_min_gap == cfg.kf_max_gap):
+                raise ValueError(
+                    "distribute_ba over several ranks needs the same keyframe "
+                    "decisions on every rank: set stats_deterministic or "
+                    "kf_min_gap == kf_max_gap"
+                )
+            self._ba_mesh = mesh
+        return self._ba_mesh
 
     @staticmethod
     def _gate_ba_adoption(m_old, m_new, R_new, t_new, R0, t0, cfg):
@@ -418,7 +454,15 @@ class BaseVO:
                 num_fixed=0,
             )
             prob = map_state.as_ba_problem(m, self.intr)._replace(cam_fixed=cam_fixed)
-            out, info = ba.solve_impl(prob, params)
+            if cfg.distribute_ba:
+                from viso_tpu_torch.parallel import dist_ba
+
+                mesh = self._mesh()
+                solver = dist_ba.make_sharded_solver(mesh, params)
+                out, info = solver(dist_ba.pad_landmarks(prob, mesh.size))
+                out = out._replace(points=out.points[:cfg.max_landmarks])
+            else:
+                out, info = ba.solve_impl(prob, params)
         m_new = map_state.update_from_ba(m, out.R, out.t, out.points)
         m_out, R_out, t_out = self._gate_ba_adoption(
             m, m_new, out.R[pose_slot], out.t[pose_slot], R0, t0, cfg

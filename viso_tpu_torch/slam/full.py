@@ -82,6 +82,10 @@ class LoopLayer:
     `_node_scales`, `_add_estimate`, `_store_solution` and
     `_solve_health`."""
 
+    # Loop corrections land on the worker thread at times that differ per
+    # rank: distribute_ba runs at world size 1 only.
+    _multi_rank_ba = False
+
     def _init_loop_layer(self, loop_params: LoopParams | None):
         self.loop_params = loop_params or LoopParams()
         self.loop_db = LoopDatabase(self.loop_params, seed=self.cfg.seed + 1,

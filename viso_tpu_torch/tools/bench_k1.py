@@ -27,6 +27,7 @@ from viso_tpu_torch.tools import bench_extract
 H, W = 376, 1240            # the bench headline (StereoVO)
 SLAM_H, SLAM_W = 184, 616   # the 500-frame loop SLAM cell
 CLI_H, CLI_W = 240, 320     # `viso_tpu_torch.run`'s synthetic sequence
+MP_H, MP_W = 120, 160       # `multiprocess_ba --engine`'s StereoVO
 
 # (name, image shape, window (h, w), N, source) -- every call the
 # headline's stereo VO path, the SLAM cell, the mono cell and the CLI's
@@ -103,6 +104,24 @@ MAIN_PATH_CASES = [
     ("cli lk L1 win24", (2, CLI_H // 2, CLI_W // 2), (24, 24), 1008, "two"),
     ("cli lk L0 win24", (2, CLI_H, CLI_W), (24, 24), 1008, "two"),
     ("cli photo-BA win16", (8, CLI_H // 2, CLI_W // 2), (16, 16), 8 * 2048, "stack"),
+    # The distributed engine runs (chip_smoke phase 10). The mesh dryrun's
+    # StereoSLAM (240x320, 192 features, 2048 landmarks, 64 loop
+    # features) tracks and builds templates at the CLI's shapes; its
+    # stereo match and digest are its own.
+    ("dist stereo left win12", (CLI_H, CLI_W), (12, 12), 192, False),
+    ("dist stereo right rect 12x60", (CLI_H, CLI_W), (12, 60), 192, False),
+    ("dist descriptors win34", (CLI_H, CLI_W), (34, 34), 64, False),
+    # `multiprocess_ba --engine` (120x160, 96 features, 256 landmarks, 4
+    # keyframes: align's stack is 4 keyframes and the current image);
+    # levels 1-2 are at the CLI's level 2-3 shapes.
+    ("mp templates L0 win10", (MP_H, MP_W), (10, 10), 256, False),
+    ("mp templates L3 win10", (MP_H // 8, MP_W // 8), (10, 10), 256, False),
+    ("mp track direct L0 win24", (MP_H, MP_W), (24, 24), 256, False),
+    ("mp track direct L3 win15", (MP_H // 8, MP_W // 8), (15, 15), 256, False),
+    ("mp track align L1 idx win16", (5, MP_H // 2, MP_W // 2), (16, 16), 512, "two"),
+    ("mp track align L0 idx win16", (5, MP_H, MP_W), (16, 16), 512, "two"),
+    ("mp stereo left win12", (MP_H, MP_W), (12, 12), 96, False),
+    ("mp stereo right rect 12x60", (MP_H, MP_W), (12, 60), 96, False),
 ]
 TRACK_CASES = [c[0] for c in MAIN_PATH_CASES if c[0].startswith("track")]
 

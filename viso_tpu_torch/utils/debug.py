@@ -1,0 +1,112 @@
+"""Numeric sanitizer analogues and state audits (port of
+`viso_tpu/utils/debug.py`).
+
+  * `enable_nan_checks()`: torch's anomaly mode (also via env
+    VISO_DEBUG_NANS=1).
+  * `check_finite_state(engine)`: sweeps every tensor of the live engine
+    state (map, pose, pose graph, loop database) and names each field that
+    went non-finite. The map is all fixed-capacity masked tensors, so one
+    sweep covers the whole SLAM state.
+  * `snapshot_versions` / `assert_no_donation`: the reference pins that no
+    engine kernel donates a buffer, because the loop layer's digest and
+    keyframe snapshots read map arrays after their successors exist. The
+    torch form of that invariant: no engine program writes in place into a
+    map tensor a snapshot still holds. Every in-place write bumps a
+    tensor's `_version`, so the check compares the counters.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+
+def enable_nan_checks(enabled: bool = True):
+    """Turn torch's anomaly mode on or off: a backward pass that produces
+    NaN raises at the forward op that led to it, with its traceback.
+
+    What it does not catch: NaN in forward-only code. The engines run no
+    backward pass, so their NaN shows only in results; the production
+    programs also carry branchless `isfinite` guards (ops/direct.py,
+    backend/ba.py) that replace NaN, which JAX's debug-NaN mode would
+    stop at. Use `check_finite_state` for the engine state."""
+    torch.autograd.set_detect_anomaly(enabled)
+
+
+if os.environ.get("VISO_DEBUG_NANS") == "1":
+    enable_nan_checks(True)
+
+
+def _host(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, (list, tuple)) and x:
+        return np.stack([_host(v) for v in x])
+    return np.asarray(x)
+
+
+def check_finite_state(engine) -> list[str]:
+    """Audit every tensor of a VO/SLAM engine for non-finite values.
+
+    Returns the offending field names (empty = healthy). Pulls the whole
+    state to the host: a debugging and checkpoint-time tool, not a
+    per-frame check.
+    """
+    bad: list[str] = []
+
+    def scan(name, arr):
+        a = _host(arr)
+        if a.dtype.kind == "f" and not np.all(np.isfinite(a)):
+            bad.append(name)
+
+    m = engine.map
+    for name in m._fields:
+        v = getattr(m, name)
+        if isinstance(v, tuple):
+            for lvl, x in enumerate(v):
+                scan(f"map.{name}[{lvl}]", x)
+        else:
+            scan(f"map.{name}", v)
+    scan("R", engine.R)
+    scan("t", engine.t)
+    for attr in ("pg_raw_R", "pg_raw_t", "pg_R", "pg_t", "pg_s"):
+        v = getattr(engine, attr, None)
+        if v:
+            scan(attr, v)
+    db = getattr(engine, "loop_db", None)
+    if db is not None:
+        for attr in ("points_w", "points_w_dev", "R", "t", "path_len", "rot_len"):
+            v = getattr(db, attr, None)
+            if v is not None:
+                scan(f"loop_db.{attr}", v)
+    return bad
+
+
+def snapshot_versions(engine) -> list:
+    """(name, tensor, version) for every tensor of the engine's current
+    map, pose and motion model: what a keyframe digest snapshot holds."""
+    out = []
+    m = engine.map
+    for name in m._fields:
+        v = getattr(m, name)
+        for i, x in enumerate(v if isinstance(v, tuple) else (v,)):
+            label = f"map.{name}[{i}]" if isinstance(v, tuple) else f"map.{name}"
+            out.append((label, x, x._version))
+    for name in ("R", "t", "vel_xi"):
+        x = getattr(engine, name)
+        out.append((name, x, x._version))
+    return out
+
+
+def assert_no_donation(snapshot):
+    """Raise AssertionError if any tensor of `snapshot_versions(...)` was
+    written in place since: the loop layer's digest and the keyframe
+    snapshots read old map tensors after the programs that replaced them
+    ran."""
+    written = [name for name, x, version in snapshot if x._version != version]
+    assert not written, (
+        f"in-place writes into snapshot tensors {written}: engine programs "
+        "must return new map tensors, not update the old ones"
+    )
