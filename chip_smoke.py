@@ -45,6 +45,9 @@ raises and exits non-zero:
      60 warmup frames, frames 60-499 timed on the host clock, then
      join(). 500 finite poses, no hook errors, at least one loop, ATE
      (no scale alignment) below 0.15 m, and K1 launched during the run;
+     the loop funnel (`tools/diag_loops.Funnel`: keyframes, queries,
+     eligible, matches, 3-D, PnP inliers, drift gate, loops) printed, each
+     stage at most the one before and the last the run's loops;
   7. MonocularVO at the reference's mono configuration (`bench.py:
      329-449`: 184x616, half-KITTI intrinsics, 256 features, the rng-5
      corridor over 500 frames, uint8 frames, BA backend "auto", so
@@ -80,8 +83,9 @@ raises and exits non-zero:
      something (an accepted solve, node scales off 1, loops' s_rel near
      ground truth's ratios: MONO_SLAM_SCALE_MOVE, MONO_SLAM_TRUTH_*); the
      card and the CPU agreeing (MONO_SLAM_HOLD_LOG_TOL,
-     MONO_SLAM_SOLVE_TOL); and K1 launched from the digest, LK and
-     photometric BA;
+     MONO_SLAM_SOLVE_TOL); K1 launched from the digest, LK and
+     photometric BA; and the loop funnel as phase 6's, with the |log s|
+     scale gate;
  10. the distributed window BA (`viso_tpu_torch/parallel/dist_ba.py`):
      (a) `tools/bench_dist_ba`'s problem (C=16, L=65,536, 10 LM
      iterations) over an NCCL group of one rank, bit-equal to
@@ -98,7 +102,27 @@ raises and exits non-zero:
      distribute_ba, K1 launched; (d) `multiprocess_ba --engine`'s StereoVO
      over 2 gloo ranks on the card, each within 0.05 m of its single-rank
      run, ATEs below 0.08 m, ranks equal, K1 launched;
- 11. one JSON line with the kernel records (`launches`: the kernel's
+ 11. the stats-delay scenario and the diagnostic and profiling tools
+     (`viso_tpu_torch/tools/`): (a) tests/test_torch_stats_stress.py's
+     corridor with every stats sample delayed 0-10 frames (rng 3, 60
+     frames) and 10 frames (40 frames) through the real pinned copies and
+     events: the fixed delay at the engine's default hard lag (8 on the
+     card), keyframe gaps within [2, 8] and no forced recovery; the
+     random delay at the CPU's hard lag 4, gaps within [2, 8] and its ATE
+     below 0.08 m (at 8 the JAX package breaks that bound too, given the
+     same delays: tests/stats_lag_parity.py);
+     (b) `diag_drift` at 60 frames: the drift split into tracked and
+     keyframe frames, ATE below 0.15 m; (c) `diag_track_bias` at its
+     defaults, its first 4 frames held on the CPU (step lengths within
+     5e-5 m), refined step errors below 0.05 m; (d) `diag_mono_seam`: a
+     re-init, no hook errors, the loops' s_rel beside the nodes' realized
+     scales; (e) `profile_frame`, `profile_track` and `profile_direct` at
+     376x1240 (`profile_frame` on phase 4's first 16 frames, its own
+     sequence), 1 call a stage: host, wall, stream and device ms, kernels
+     and K1's launches per stage (device time and kernels above 0 for
+     every stage of more than one kernel, one K1 launch in each K1 stage,
+     6 in the track program);
+ 12. one JSON line with the kernel records (`launches`: the kernel's
      launches summed over the main paths it is on, each counted from 0
      just before its path and read just after; the times: K1 summed over
      a tracked frame's 6 calls, K2 over the tool's 12), then the last
@@ -199,6 +223,18 @@ DIST_CAMS, DIST_LANDMARKS, DIST_ITERS = 16, 65536, 10
 DIST_R_TOL, DIST_T_TOL, DIST_P_TOL, DIST_COST_RTOL, DIST_COST_ATOL = 1e-4, 1e-3, 1e-2, 1e-3, 1e-9
 DIST_SLAM_GAP_M = 1e-5
 DIST_SPAWN_TIMEOUT_S = 120.0
+# Phase 11: tests/test_torch_stats_stress.py's corridor and its ATE bound
+# under random stats delays; diag_drift's frames on the loop orbit;
+# diag_track_bias's frames held on the CPU and the step gap allowed (the
+# card's and the CPU's f32 sums part in GN, alignment and the PnP refine:
+# the card against the CPU read 7e-7 m; the CPU against the JAX ops 6e-6
+# m, held within this same 5e-5 by tests/test_torch_diag_tools.py);
+# the profiles' calls per stage.
+STRESS_HW, STRESS_ATE_M, STRESS_HARD_LAG = (192, 256), 0.08, 4
+STRESS_INTR = dict(fx=200.0, fy=200.0, cx=STRESS_HW[1] / 2 - 0.5, cy=STRESS_HW[0] / 2 - 0.5)
+DRIFT_FRAMES = 60
+TRACK_BIAS_CPU_FRAMES, TRACK_BIAS_TOL_M = 4, 5e-5
+PROFILE_REPS = 1
 # The timings summed over a tracked frame's calls (K1) or the tool's sweep (K2).
 FRAME_KEYS = ("device_ms", "host_ms", "floor_ms", "bound_ms", "library_ms", "plain_ms",
               "entry_ms")
@@ -451,22 +487,18 @@ def render_orbit(synthetic):
 
 
 def slam_phase(torch, extract, extract_aligned, frames, Rs, ts, metrics, dev, card):
-    """Phase 6. StereoSLAM on the reference's 500-frame loop cell; returns
-    K1's launches during the run."""
-    from viso_tpu_torch.slam.engine import VOConfig
+    """Phase 6. StereoSLAM on the reference's 500-frame loop cell (the
+    configuration of `tools/diag_loops.stereo_config`) with the loop funnel
+    installed; returns K1's launches during the run."""
     from viso_tpu_torch.slam.full import StereoSLAM
     from viso_tpu_torch.slam.loop_closure import LoopParams
+    from viso_tpu_torch.tools import diag_loops
 
-    half = {k: KITTI_FULL[k] / 2 for k in ("fx", "fy", "cx", "cy")}
-    cfg = VOConfig(
-        height=SLAM_H, width=SLAM_W, baseline=0.537, **half,
-        num_features=256, max_landmarks=1024, detect_grid=(4, 8),
-        fast_threshold=6.0, max_disparity=96,
-        stats_max_lag=8, kf_max_gap=8, kf_min_gap=2,
-    )
     extract.launch.launches = 0
     extract_aligned.launch.launches = 0
-    slam = StereoSLAM(cfg, LoopParams(min_inliers=40, max_correction_m=4.0), device=dev)
+    slam = StereoSLAM(diag_loops.stereo_config(), LoopParams(min_inliers=40, max_correction_m=4.0),
+                      device=dev)
+    funnel = diag_loops.Funnel(slam)
     try:
         nxt = slam.to_device(*frames[0])
         for i in range(SLAM_WARMUP):
@@ -493,6 +525,7 @@ def slam_phase(torch, extract, extract_aligned, frames, Rs, ts, metrics, dev, ca
         nodes = len(slam.pg_R)
         loops = list(slam.loops)
         errors = list(slam.hook_errors)
+        counts = funnel.counts()
     finally:
         slam.close()
     n_timed = SLAM_FRAMES - SLAM_WARMUP
@@ -508,6 +541,7 @@ def slam_phase(torch, extract, extract_aligned, frames, Rs, ts, metrics, dev, ca
                            align=True, with_scale=False)
     print(f"StereoSLAM ATE (no scale alignment): {ate:.6f} m; limit {SLAM_ATE_LIMIT_M} m")
     print(f"K1 launches during the SLAM run: {launches} (K2: {k2_launches})")
+    check_funnel("StereoSLAM", counts, loops)
     if errors:
         raise AssertionError(f"{len(errors)} keyframe hook errors, first: {errors[0]!r}")
     if not loops:
@@ -517,6 +551,15 @@ def slam_phase(torch, extract, extract_aligned, frames, Rs, ts, metrics, dev, ca
     if launches <= 0:
         raise AssertionError("the SLAM path never launched the extraction kernel")
     return launches
+
+
+def check_funnel(name, counts, loops):
+    """Print a run's loop funnel (`tools/diag_loops.Funnel`); each stage
+    at most the one before, the last the run's loops."""
+    print(f"{name} loop funnel: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    values = list(counts.values())
+    if any(a < b for a, b in zip(values, values[1:])) or counts["loops"] != len(loops):
+        raise AssertionError(f"{name} loop funnel inconsistent: {counts}, {len(loops)} loops")
 
 
 class K1Sites:
@@ -750,7 +793,7 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
     mono_cell.py --slam`, seed 0) over the left images of phase 6's orbit;
     returns K1's launches during the run."""
     from viso_tpu_torch.slam.mono_full import MonoSLAM
-    from viso_tpu_torch.tools import mono_cell
+    from viso_tpu_torch.tools import diag_loops, mono_cell
 
     extract.launch.launches = 0
     slam = MonoSLAM(mono_cell.slam_config(), mono_cell.slam_loop_params(), device=dev)
@@ -772,6 +815,7 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
 
     slam._solve, slam._store_solution = timed_solve, counted_store
     recorder = LoopRecorder(torch, slam)
+    funnel = diag_loops.Funnel(slam)
     try:
         with K1Sites(extract) as sites:
             nxt = slam.to_device(frames[0])
@@ -796,6 +840,7 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
         n_kf = sum(r.is_keyframe for r in slam.results)
         nodes, reinits = len(slam.pg_s), slam.num_reinits
         loops, errors, scales = list(slam.loops), list(slam.hook_errors), list(slam.pg_s)
+        counts = funnel.counts()
         ate, ate_raw = mono_cell.slam_accuracy(slam, Rs, ts)
         s_gt = mono_cell.loop_scale_truth(slam, Rs, ts)
         # The Sim(3) layer on the card against the CPU: each loop detection
@@ -852,6 +897,7 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
           f"node scales {float(s_dev.min()):.4f}-{float(s_dev.max()):.4f}")
     print(f"K1 launches during the mono SLAM run: {launches}, by call site "
           f"{dict(sorted(sites.counts.items()))}")
+    check_funnel("MonoSLAM", counts, loops)
     if len(R_est) != SLAM_FRAMES or not (np.isfinite(R_est).all() and np.isfinite(t_est).all()):
         raise AssertionError("mono SLAM trajectory has the wrong length or non-finite poses")
     if errors:
@@ -924,6 +970,194 @@ def cli_phase(torch, extract, card):
                     and summary["ate_rmse_m"] < CLI_ATE_LIMITS[mode]):
                 raise AssertionError(f"--mode {mode}: summary {summary}")
     return launches
+
+
+def tool_json(module, argv):
+    """A tool's `main(argv)` with its output captured: the JSON object of
+    its last line."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    if rc != 0:
+        raise AssertionError(f"{module.__name__} {argv} returned {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def stress_frames(n):
+    """tests/test_torch_stats_stress.py's corridor: n stereo pairs and
+    ground truth (a prefix of a longer run's)."""
+    from viso_tpu_torch.data import synthetic
+    from viso_tpu_torch.geometry import camera
+
+    h, w = STRESS_HW
+    scene = synthetic.corridor_scene(np.random.default_rng(7), tex_size=512)
+    Rs, ts = synthetic.forward_trajectory(n, step=0.2, yaw_rate=0.004)
+    cam = camera.Intrinsics.create(**STRESS_INTR)
+    pairs = [synthetic.make_stereo_pair(scene, cam, R, t, h, w, baseline=0.3)[:2]
+             for R, t in zip(Rs, ts)]
+    return pairs, Rs, ts
+
+
+def stats_stress(dev, rng, max_delay, pairs, Rs, ts, hard_lag):
+    """Phase 11 (a): StereoVO over the stress corridor on the card with
+    every stats sample delayed (`utils/debug.delay_stats`), through the
+    real pinned copies and events; `hard_lag` 0 is the engine's default.
+    Returns (keyframe gaps, ATE, lost count, the engine's hard lag, the
+    largest stats age seen at a decision)."""
+    from viso_tpu_torch.slam.engine import StereoVO, VOConfig
+    from viso_tpu_torch.utils import debug, metrics
+
+    h, w = STRESS_HW
+    cfg = VOConfig(height=h, width=w, max_keyframes=6, max_landmarks=384, num_features=192,
+                   detect_grid=(4, 6), fast_threshold=15.0, baseline=0.3, max_disparity=48,
+                   kf_min_gap=2, kf_max_gap=8, stats_max_lag=4, stats_hard_lag=hard_lag,
+                   **STRESS_INTR)
+    vo = debug.delay_stats(StereoVO(cfg, device=dev), rng, max_delay)
+    age = 0
+    try:
+        for il, ir in pairs:
+            vo.process(il, ir)
+            if hasattr(vo, "_stats_frame"):
+                age = max(age, vo.frame_idx - vo._stats_frame)
+        R_est, t_est = vo.trajectory()
+        gaps = np.diff([i for i, r in enumerate(vo.results) if r.is_keyframe])
+        lost, hard = getattr(vo, "_lost_count", 0), vo._stats_hard_lag()
+    finally:
+        vo.close()
+    if not (np.isfinite(R_est).all() and np.isfinite(t_est).all()):
+        raise AssertionError("stats stress: non-finite poses")
+    n = len(pairs)
+    ate = metrics.ate_rmse(metrics.camera_centers(R_est, t_est),
+                           metrics.camera_centers(Rs[:n], ts[:n]), align=True, with_scale=False)
+    return gaps, float(ate), lost, hard, age
+
+
+def tools_phase(torch, extract, orbit, Rs, ts, headline, dev, card):
+    """Phase 11. The stats-delay scenario and the diagnostic and profiling
+    tools on the card (`diag_drift` on the first frames of phase 6's
+    orbit, `profile_frame` on those of phase 4's headline sequence);
+    returns K1's launches during the phase."""
+    from viso_tpu_torch.tools import (diag_drift, diag_mono_seam, diag_track_bias,
+                                      profile_direct, profile_frame, profile_track)
+
+    extract.launch.launches = 0
+    # (a) keyframe cadence under random stats delays (0-10 frames, rng 3)
+    # and under a fixed 10-frame delay. The random run is held at the
+    # CPU's hard lag 4: at the card's default (`max(8, 2 *
+    # stats_max_lag)`, 8 here) the delay it lets decisions see breaks the
+    # test's 0.08 m in the JAX package too, given the same delays
+    # (tests/stats_lag_parity.py, ROADMAP Queue 3). The fixed delay runs
+    # at the default.
+    class Fixed:
+        def integers(self, lo, hi):
+            return 10
+
+    t0 = time.perf_counter()
+    pairs, Rs_s, ts_s = stress_frames(60)
+    for label, rng, frames, hard_lag in (
+            ("random 0-10", np.random.default_rng(3), 60, STRESS_HARD_LAG),
+            ("fixed 10", Fixed(), 40, 0)):
+        gaps, ate, lost, hard, age = stats_stress(dev, rng, 10, pairs[:frames], Rs_s, ts_s,
+                                                  hard_lag)
+        held = hard_lag == STRESS_HARD_LAG
+        print(f"stats delayed {label} frames over {frames} frames, hard lag {hard} "
+              f"({'pinned' if hard_lag else 'default'}): keyframe gaps {gaps.tolist()}, ATE "
+              f"{ate:.6f} m ({'held below' if held else 'not held;'} {STRESS_ATE_M} m), lost "
+              f"count {lost}, oldest sample at a decision {age} frames [{card}]")
+        if not (gaps.min() >= 2 and gaps.max() <= 8 and lost == 0
+                and (not held or ate < STRESS_ATE_M)):
+            raise AssertionError(f"stats stress {label}: gaps {gaps}, ATE {ate}, lost {lost}")
+    print(f"phase 11a wall {time.perf_counter() - t0:.1f} s")
+
+    # (b) per-frame drift of pure StereoVO on the loop orbit (phase 6's
+    # frames), at the tool's defaults.
+    t0 = time.perf_counter()
+    on = ["--device", str(dev)]
+    d = diag_drift.run(orbit[:DRIFT_FRAMES], Rs[:DRIFT_FRAMES], ts[:DRIFT_FRAMES],
+                       diag_drift.config(), dev)
+    print(f"diag_drift {d['frames']} frames: {d['keyframes']} keyframes, yaw bias per frame "
+          f"tracked {d['tracked_yaw_bias_rad_per_frame']:.3e} rad, keyframe "
+          f"{d['keyframe_yaw_bias_rad_per_frame']:.3e} rad; translation error per frame "
+          f"tracked {d['tracked_trans_err_mean_m']:.6f} m, keyframe "
+          f"{d['keyframe_trans_err_mean_m']:.6f} m; end rotation drift "
+          f"{d['total_rot_drift_rad']:.6f} rad; n_tracked mean {d['mean_n_tracked']:.1f} min "
+          f"{d['min_n_tracked']}; ATE {d['ate_rmse_m']:.6f} m; {d['seconds']:.1f} s [{card}]")
+    if not d["ate_rmse_m"] < SLAM_ATE_LIMIT_M:
+        raise AssertionError(f"diag_drift ATE {d['ate_rmse_m']} over {SLAM_ATE_LIMIT_M} m")
+    print(f"phase 11b wall {time.perf_counter() - t0:.1f} s")
+
+    # (c) the tracking chain's step bias from a perfect map, held on the
+    # CPU over its first frames.
+    t0 = time.perf_counter()
+    b = tool_json(diag_track_bias, on)
+    cpu_rows, _ = diag_track_bias.run("corridor", TRACK_BIAS_CPU_FRAMES, 0.15, 6, "cpu")
+    gap = max(abs(r[k] - c[k]) for r, c in zip(b["rows"], cpu_rows)
+              for k in ("direct_step_m", "refined_step_m"))
+    for r in b["rows"]:
+        print(f"diag_track_bias frame {r['frame']}: |t| gt {r['gt_step_m']:.4f} direct "
+              f"{r['direct_step_m']:.4f} (err {r['direct_err_m']:.4f}) refined "
+              f"{r['refined_step_m']:.4f} (err {r['refined_err_m']:.4f}) m, rot err "
+              f"{r['rot_err_deg']:.3f} deg, {r['aligned']} aligned [{b['device']}]")
+    print(f"diag_track_bias: {b['landmarks']} landmarks; card against the CPU over "
+          f"{len(cpu_rows)} frames: max step gap {gap:.3g} m (tolerance {TRACK_BIAS_TOL_M})")
+    if gap > TRACK_BIAS_TOL_M or max(r["refined_err_m"] for r in b["rows"]) > 0.05:
+        raise AssertionError(f"diag_track_bias: gap {gap}, rows {b['rows']}")
+    print(f"phase 11c wall {time.perf_counter() - t0:.1f} s")
+
+    # (d) the mono scale seam (tests/test_slam.py's scenario).
+    t0 = time.perf_counter()
+    m = tool_json(diag_mono_seam, on)
+    print(f"diag_mono_seam: {m['reinits']} re-inits, {m['hook_errors']} hook errors, loops "
+          f"(cur, cand, s_rel, expected from the nodes' realized scales) "
+          f"{[(lo['cur'], lo['cand'], round(lo['s_rel'], 4), round(lo['expected'], 4)) for lo in m['loops']]}, "
+          f"node scales {m['s_min']:.4f}-{m['s_max']:.4f} [{m['device']}]")
+    if m["hook_errors"] or m["reinits"] < 1:
+        raise AssertionError(f"diag_mono_seam: {m}")
+    print(f"phase 11d wall {time.perf_counter() - t0:.1f} s")
+
+    # (e) the profiles at the headline's shapes. profile_frame's sequence
+    # is the first 16 frames of phase 4's (the same corridor and path):
+    # its first frame is rendered again and held equal.
+    t0 = time.perf_counter()
+    reps = ["--reps", str(PROFILE_REPS)] + on
+    cfg = profile_frame.config()
+    first = profile_frame.render(cfg, 1)[0]
+    if not all(np.array_equal(a, b) for a, b in zip(first, headline[0])):
+        raise AssertionError("profile_frame: its sequence is not phase 4's")
+    f = profile_frame.profile(dev, PROFILE_REPS, frames=headline[:profile_frame.FRAMES])
+    walls = {"profile_frame": time.perf_counter() - t0}
+    tr = tool_json(profile_track, reps)
+    walls["profile_track"] = time.perf_counter() - t0 - sum(walls.values())
+    di = tool_json(profile_direct, reps)
+    walls["profile_direct"] = time.perf_counter() - t0 - sum(walls.values())
+    print("phase 11e walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    for tool, rows in (("profile_frame", f["stages"]), ("profile_track", tr["stages"]),
+                       ("profile_direct", [r for lv in di["levels"]
+                                           for r in (lv["gn_pass"], lv["k1"], lv["sampler"])]
+                        + di["level0"])):
+        for r in rows:
+            print(f"{tool} {r['name']}: host {r['host_ms']:.3f} ms, wall {r['wall_ms']:.3f} "
+                  f"ms, stream {r['stream_ms']:.3f} ms, device {r['device_ms']:.3f} ms, "
+                  f"{r['kernels']} kernels ({r['tries']} profiler windows, fence {r['fence']}), "
+                  f"{r['launches']} K1 [{card}]")
+            # A one-kernel stage is held by its K1 count, not by the
+            # profiler: one run read 0 kernels for the single op of "tiny
+            # dispatch+sync", another 1.
+            if r["name"].split()[-1] in ("dispatch+sync", "upload"):
+                continue
+            if "K1" in r["name"].split():
+                if r["launches"] != 1:
+                    raise AssertionError(f"{tool} {r['name']}: {r['launches']} K1 launches")
+            elif not (r["device_ms"] > 0 and r["kernels"] > 0):
+                raise AssertionError(f"{tool} {r['name']}: no device time: {r}")
+    print(f"profile_frame stats fetch: copy alone {f['stats_copy_ms']:.3f} ms, after the track "
+          f"is enqueued {f['stats_wait_ms']:.3f} ms; process() {f['process_ms']:.3f} ms per "
+          f"frame over {f['process_frames']} frames [{card}]")
+    k1 = {r["name"]: r["launches"] for r in f["stages"]}
+    if k1["track"] != 6 or k1["templates"] <= 0 or k1["stereo_kf"] <= 0:
+        raise AssertionError(f"profile_frame: K1 launches by stage {k1}")
+    print(f"phase 11e wall {time.perf_counter() - t0:.1f} s")
+    return extract.launch.launches
 
 
 def dist_phase(torch, extract, dev, card):
@@ -1248,7 +1482,12 @@ def main() -> int:
     dist_k1 = dist_phase(torch, extract, dev, card)
     print(f"phase 10 wall {time.perf_counter() - t0:.1f} s")
 
-    # Phase 11: results.
+    # Phase 11: the stats-delay scenario and the diagnostic and profiling tools.
+    t0 = time.perf_counter()
+    tools_k1 = tools_phase(torch, extract, orbit, orbit_Rs, orbit_ts, frames, dev, card)
+    print(f"phase 11 wall {time.perf_counter() - t0:.1f} s")
+
+    # Phase 12: results.
     print(f"total wall {time.perf_counter() - t_start:.1f} s")
     # ms, plain_ms, bound_ms, library_ms: device times (CUDA graph replay),
     # K1 summed over a tracked frame's 6 calls, K2 over the tool's 12 calls.
@@ -1265,7 +1504,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         record("extract_windows", "viso_tpu_torch/csrc/extract_windows.cu",
                "viso_tpu/geometry/extract_pallas.py:64",
-               launches + slam_k1 + mono_k1 + cli_k1 + mono_slam_k1 + dist_k1,
+               launches + slam_k1 + mono_k1 + cli_k1 + mono_slam_k1 + dist_k1 + tools_k1,
                max_err, k1_frame),
         record("extract_aligned", "viso_tpu_torch/csrc/extract_aligned.cu",
                "tools/bench_extract.py:37", k2["launches"], k2["max_abs_err"], k2),

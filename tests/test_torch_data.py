@@ -212,13 +212,16 @@ def test_synthetic_additions_match(rng):
 
 
 def test_port_sources_import_no_jax_or_viso_tpu():
-    """No module of viso_tpu_torch, and not chip_smoke.py, imports jax or
-    viso_tpu -- lazy imports inside functions included (the import test
-    of tests/test_torch_extract.py sees module-level imports only)."""
+    """No module of viso_tpu_torch, and not chip_smoke.py, imports jax,
+    viso_tpu, the reference's bench.py or the tests -- lazy imports inside
+    functions included (the import test of tests/test_torch_extract.py
+    sees module-level imports only)."""
     files = sorted((REPO / "viso_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert {"run.py", "lk.py", "ransac.py", "twoview.py", "ba_photometric.py", "epipolar.py",
             "triangulation.py", "datasets.py", "native.py", "png_io.py", "viz.py",
-            "logging.py", "dist_ba.py", "mesh.py", "debug.py", "profiling.py"} <= {f.name for f in files}
+            "logging.py", "dist_ba.py", "mesh.py", "debug.py", "profiling.py",
+            "diag_loops.py", "diag_drift.py", "diag_track_bias.py", "diag_mono_seam.py",
+            "profile_frame.py", "profile_track.py", "profile_direct.py"} <= {f.name for f in files}
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
@@ -228,5 +231,5 @@ def test_port_sources_import_no_jax_or_viso_tpu():
             elif isinstance(node, ast.ImportFrom) and node.module:
                 names = [node.module]
             bad += [(f.name, n) for n in names
-                    if n.split(".")[0] in ("jax", "jaxlib", "viso_tpu")]
+                    if n.split(".")[0] in ("jax", "jaxlib", "viso_tpu", "bench", "tests")]
     assert not bad, bad

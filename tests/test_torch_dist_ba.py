@@ -65,7 +65,8 @@ def test_four_gloo_ranks_match_jax_eight_devices(rng):
     prob_j, _ = synthetic_window(rng, C=5, L=96)
     params_j = j_ba.BAParams(iters=10, num_fixed=2)
     out_j, info_j = j_dist.solve_sharded(prob_j, params_j, j_mesh.make_mesh())
-    ranks = multiprocess_ba.launch(multiprocess_ba.ba_rank, 4, args=(_arrays(prob_j), 10, 2))
+    ranks = multiprocess_ba.launch(multiprocess_ba.ba_rank, 4, args=(_arrays(prob_j), 10, 2),
+                                   device="cpu")
     assert [r["rank"] for r in ranks] == [0, 1, 2, 3] and {r["world"] for r in ranks} == {4}
     for r in ranks:
         _close(r["R"], out_j.R, R_TOL)
@@ -92,7 +93,8 @@ def test_padding_over_two_ranks(rng):
     """61 landmarks over 2 ranks: one padded slot, stripped from the
     result; the solve converges and agrees with the single solve."""
     prob_j, (R_true, t_true, _) = synthetic_window(rng, C=4, L=61)
-    ranks = multiprocess_ba.launch(multiprocess_ba.ba_rank, 2, args=(_arrays(prob_j), 6, 2))
+    ranks = multiprocess_ba.launch(multiprocess_ba.ba_rank, 2, args=(_arrays(prob_j), 6, 2),
+                                   device="cpu")
     for r in ranks:
         assert r["points"].shape == (61, 3)
         assert r["final_cost"] < r["initial_cost"]

@@ -115,7 +115,7 @@ def test_two_gloo_ranks_engine_with_pinned_cadence():
     """`multiprocess_ba --engine` over 2 spawned gloo ranks: each rank's
     distributed StereoVO within 0.05 m of its single-rank run, both ATEs
     below 0.08 m, and the two ranks' trajectories equal."""
-    ranks = multiprocess_ba.launch(multiprocess_ba.engine_rank, 2)
+    ranks = multiprocess_ba.launch(multiprocess_ba.engine_rank, 2, device="cpu")
     for r in ranks:
         assert multiprocess_ba.engine_ok(r), r
         np.testing.assert_array_equal(r["c_dist"], ranks[0]["c_dist"])

@@ -23,6 +23,7 @@ from viso_tpu_torch.geometry import camera as t_cam
 from viso_tpu_torch.slam import loop_closure as t_lc
 from viso_tpu_torch.slam.engine import FrameResult, StereoVO, VOConfig
 from viso_tpu_torch.slam.full import StereoSLAM
+from viso_tpu_torch.tools import diag_loops
 from viso_tpu_torch.utils import metrics
 
 torch.set_num_threads(2)
@@ -349,12 +350,18 @@ def orbit_runs():
               for R, t in zip(Rs, ts)]
     jslam = JStereoSLAM(JVOConfig(**SLAM_CFG), j_lc.LoopParams(**LOOP))
     tslam = StereoSLAM(VOConfig(**SLAM_CFG), t_lc.LoopParams(**LOOP), device="cpu")
+    # The loop funnel (tools/diag_loops.py), installed the same way on
+    # both packages, beside the gate records of both databases.
+    funnels = {}
+    for name, slam in (("jax", jslam), ("port", tslam)):
+        slam.loop_db.debug = []
+        funnels[name] = diag_loops.Funnel(slam)
     for il, ir in frames:
         jslam.process(il, ir)
         tslam.process(il, ir)
     jslam.join()
     tslam.join()
-    yield jslam, tslam, Rs, ts
+    yield jslam, tslam, Rs, ts, funnels
     jslam.close()
     tslam.close()
 
@@ -379,7 +386,7 @@ def _graph_and_odometry_ate(slam, Rs, ts):
 
 
 def test_slam_orbit_closes_loop_in_both_packages(orbit_runs):
-    jslam, tslam, Rs, ts = orbit_runs
+    jslam, tslam, Rs, ts, _ = orbit_runs
     assert tslam.hook_errors == [] and jslam.hook_errors == []
     for slam in (jslam, tslam):
         assert len(slam.loops) >= 1 and slam.loops[-1]["to"] <= 2
@@ -399,11 +406,38 @@ def test_slam_orbit_closes_loop_in_both_packages(orbit_runs):
     assert abs(res["port"] - res["jax"]) < GRAPH_ATE_BAND_M, res
 
 
+def test_loop_funnel_counts_agree_across_packages(orbit_runs):
+    """The loop funnel of the orbit run in both packages: each stage at
+    most the one before, its PnP stage the candidates that reached the
+    drift-scaled gate (the gate's own records), its last stage the loops
+    the graph keeps. Keyframes, queries and queries with an eligible slot
+    equal across the packages (the keyframe schedule is pinned, and the
+    test above holds it); descriptor-match and 3-D stages within 1 (the
+    two odometries differ by up to cm); the PnP and later stages within 1
+    (the float32 PnP DLT depends on the eigensolver, ROADMAP Queue 3).
+    Measured on the CPU: identical, 18 / 18 / 10 / 1 / 1 / 1 / 1 / 1."""
+    jslam, tslam, _, _, funnels = orbit_runs
+    counts = {}
+    for name, slam in (("jax", jslam), ("port", tslam)):
+        f = counts[name] = funnels[name].counts()
+        assert list(f) == [s for s in diag_loops.STAGES if s != "scale_gate"]
+        values = list(f.values())
+        assert all(a >= b for a, b in zip(values, values[1:])), (name, f)
+        assert f["pnp_inliers"] == len(slam.loop_db.debug), (name, f)
+        assert f["drift_gate"] == sum(r["accept"] for r in slam.loop_db.debug), (name, f)
+        assert f["loops"] == len(slam.loops) >= 1, (name, f)
+    j, t = counts["jax"], counts["port"]
+    for stage in ("keyframes", "queries", "eligible"):
+        assert t[stage] == j[stage], (stage, j, t)
+    for stage in ("matches", "points_3d", "pnp_inliers", "drift_gate", "loops"):
+        assert abs(t[stage] - j[stage]) <= 1, (stage, j, t)
+
+
 def test_slam_trajectory_anchors_frames_on_solved_nodes(orbit_runs):
     """Per-frame trajectory() lives in the graph's world: keyframe rows
     coincide with the pose-graph solution; frames before the first node
     do not exist (node 0 is frame 0)."""
-    _, tslam, Rs, _ = orbit_runs
+    _, tslam, Rs, _, _ = orbit_runs
     R_all, t_all = tslam.trajectory()
     assert R_all.shape == (N_FRAMES, 3, 3) and np.isfinite(R_all).all()
     pg_R, pg_t, frames = tslam.graph_trajectory()
@@ -428,7 +462,7 @@ def test_slam_checkpoint_crosses_packages(orbit_runs, tmp_path):
     from viso_tpu.utils import checkpoint as j_ckpt
     from viso_tpu_torch.utils import checkpoint as t_ckpt
 
-    jslam, tslam, _, _ = orbit_runs
+    jslam, tslam, _, _, _ = orbit_runs
     pj, pt = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
     j_ckpt.save_slam(pj, jslam, extra={"by": "jax"})
     t_ckpt.save_slam(pt, tslam, extra={"by": "port"})

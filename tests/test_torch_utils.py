@@ -4,6 +4,7 @@ snapshot-version form of the no-donation invariant), `utils/profiling.py`
 and each new tool's `main` at a tiny size with `--device cpu`."""
 
 import json
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -137,6 +138,38 @@ def test_stage_timer_and_device_trace(tmp_path):
     path = tmp_path / "trace" / "trace.json"
     assert path.exists() and "traceEvents" in json.loads(path.read_text())
     assert any("matmul" in e.key for e in prof.key_averages())
+
+
+def test_profiler_window_counts_the_fence_on_each_side_of_the_stage():
+    class Ev:
+        def __init__(self, name, start, device_type=torch.autograd.DeviceType.CUDA):
+            self.name, self.device_type = name, device_type
+            self.time_range = types.SimpleNamespace(start=start, end=start + 1)
+
+    def fence(t0, n):
+        return [Ev(profiling.PAD_KERNEL, t0 + 2 * i) for i in range(n)]
+
+    stage = [Ev("gather", 1000), Ev("sum", 1002),
+             Ev("aten::sum", 999, torch.autograd.DeviceType.CPU)]
+    kernels, pre, post = profiling.window_kernels(fence(0, 5) + stage + fence(2000, 7))
+    assert [e.name for e in kernels] == ["gather", "sum"] and (pre, post) == (5, 7)
+    assert profiling.window_kernels(stage + fence(2000, 7))[1:] == (0, 7)
+    assert profiling.window_kernels(fence(0, 5) + stage)[1:] == (5, 0)
+    assert profiling.window_kernels(fence(0, 5) + stage[2:] + fence(2000, 7)) == ([], None, None)
+
+
+def test_profile_stage_on_the_cpu_takes_one_window():
+    calls = []
+
+    def stage():
+        calls.append(1)
+        return torch.ones(4, 4) @ torch.ones(4, 4)
+
+    row = profiling.profile_stage("matmul", stage, reps=2, counter=lambda: len(calls))
+    assert row["launches"] == 1 and len(calls) == 1 + 2 + 2 + 1
+    assert row["tries"] is row["fence"] is row["kernels"] is None
+    assert row["device_ms"] is row["stream_ms"] is None
+    assert row["host_ms"] > 0 and row["wall_ms"] > 0
 
 
 def _json_lines(capsys):

@@ -177,6 +177,12 @@ class HostFetch:
 class BaseVO:
     """Shared machinery of the engines."""
 
+    # How a frame's stats start their way to the host: called with the
+    # stats tensor, returns an object with `done()` and `result()` (the
+    # reference's injectable `_stats_reader`). A test replaces it to delay
+    # when samples land.
+    _host_fetch = HostFetch
+
     def __init__(self, config: VOConfig, device):
         self.cfg = config
         self.device = torch.device(device)
@@ -510,7 +516,7 @@ class BaseVO:
         self.vel_xi = vel_new
         q = self._pending_stats
         if len(q) < max(1, self.cfg.stats_max_lag):
-            q.append((self.frame_idx, HostFetch(stats)))
+            q.append((self.frame_idx, self._host_fetch(stats)))
         consumed = None
         if self.cfg.stats_deterministic:
             # Consume each sample at exactly stats_hard_lag frames of age.

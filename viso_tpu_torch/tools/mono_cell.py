@@ -40,7 +40,8 @@ import sys
 import time
 
 import numpy as np
-import torch
+
+from viso_tpu_torch.tools import target
 
 H, W = 184, 616
 FRAMES = 500
@@ -212,19 +213,11 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=FRAMES)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("mono_cell: no CUDA device (pass --device cpu to run on the CPU)")
+    device, where = target("mono_cell", args.device)
     t0 = time.perf_counter()
     imgs, Rs, ts = (render_orbit if args.slam else render)(args.frames)
     print(f"rendered {len(imgs)} frames {H}x{W} (uint8) in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    if device.type == "cuda":
-        from viso_tpu_torch.tools import bench_extract
-
-        where = bench_extract.card_line()
-    else:
-        where = "cpu"
     runs = []
     for seed in args.seeds:
         t0 = time.perf_counter()

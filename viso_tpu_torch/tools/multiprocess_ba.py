@@ -37,6 +37,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from viso_tpu_torch.tools import target
+
 # The engine mode's run (the reference tool's).
 ENGINE_H, ENGINE_W = 120, 160
 ENGINE_FRAMES = 14
@@ -61,12 +63,14 @@ def _rank_main(rank, world, store, out_dir, backend, device, fn, args):
     torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-def launch(fn, nprocs: int, args=(), device="cpu", backend="gloo", timeout=120.0):
+def launch(fn, nprocs: int, args=(), device="cuda", backend="gloo", timeout=120.0):
     """Run `fn(device, *args)` on `nprocs` ranks of one `backend` group and
     return each rank's result, in rank order. `fn` must be a module-level
     function; its result is passed back through `torch.save`. Raises if a
     rank fails or is still running after `timeout` seconds (then every
-    rank is killed)."""
+    rank is killed). The default device is the card: without one it
+    raises unless `device="cpu"` is given."""
+    target("multiprocess_ba", device)
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="viso_ranks_") as tmp:
         store = os.path.join(tmp, "store")
@@ -283,8 +287,6 @@ def main(argv=None) -> int:
                     help="run the StereoVO engine with distribute_ba")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device (pass --device cpu)")
     fn = engine_rank if args.engine else ba_rank
     results = launch(fn, args.procs, device=args.device)
     ok = True

@@ -13,6 +13,11 @@
     torch form of that invariant: no engine program writes in place into a
     map tensor a snapshot still holds. Every in-place write bumps a
     tensor's `_version`, so the check compares the counters.
+  * `delay_stats(engine, rng, max_delay)`: stats that land late. Replaces
+    the engine's `_host_fetch` with fetches whose `done()` stays false
+    until the engine has advanced a drawn number of frames (a slow
+    device-to-host readback), the delayed executor of the reference's
+    tests/test_stats_stress.py.
 """
 
 from __future__ import annotations
@@ -110,3 +115,33 @@ def assert_no_donation(snapshot):
         f"in-place writes into snapshot tensors {written}: engine programs "
         "must return new map tensors, not update the old ones"
     )
+
+
+class DelayedFetch:
+    """A stats fetch (`slam.engine.HostFetch`) that reports done() only
+    once `engine.frame_idx` has reached `release_frame`; its result() is
+    the fetch's own."""
+
+    def __init__(self, fetch, engine, release_frame: int):
+        self._fetch = fetch
+        self._engine = engine
+        self._release = release_frame
+
+    def done(self) -> bool:
+        return self._engine.frame_idx >= self._release and self._fetch.done()
+
+    def result(self):
+        return self._fetch.result()
+
+
+def delay_stats(engine, rng, max_delay: int):
+    """Delay each of `engine`'s stats samples by `rng.integers(0,
+    max_delay + 1)` frames, drawn at submission. Returns the engine."""
+    from viso_tpu_torch.slam.engine import HostFetch
+
+    def fetch(stats):
+        delay = int(rng.integers(0, max_delay + 1))
+        return DelayedFetch(HostFetch(stats), engine, engine.frame_idx + delay)
+
+    engine._host_fetch = fetch
+    return engine
