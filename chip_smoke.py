@@ -26,8 +26,10 @@ raises and exits non-zero:
      one torch.take), its plain version's device time and its eager
      entry time from CUDA events;
   4. StereoVO at the bench-headline configuration (376x1240, KITTI
-     intrinsics, 44-frame rng-42 corridor): an instrumented run for
-     per-program times and the synchronising-call count, one more tracked
+     intrinsics, 44-frame rng-42 corridor), its programs captured as CUDA
+     graphs and replayed (`viso_tpu_torch/slam/programs.py`, as in every
+     engine run below): an instrumented run for per-program times (each
+     replay between CUDA events) and the synchronising-call count, one more tracked
      frame under torch.profiler (no copy of the keyframe stack), then a
      clean run for frames/s over 32 frames after a 12-frame warmup. K1's
      launch counter must rise during the run, and the ATE against ground
@@ -121,8 +123,18 @@ raises and exits non-zero:
      sequence), 1 call a stage: host, wall, stream and device ms, kernels
      and K1's launches per stage (device time and kernels above 0 for
      every stage of more than one kernel, one K1 launch in each K1 stage,
-     6 in the track program);
- 12. one JSON line with the kernel records (`launches`: the kernel's
+     6 in the track program, replayed and eager);
+ 12. the captured programs, at the headline's shape (StereoVO: track,
+     templates, stereo keyframe, reprojection BA) and at the mono cell's
+     (MonocularVO on phase 7's first frames: track, templates, mono
+     keyframe, photometric BA): each program's second to fourth calls,
+     replays of its graph on new inputs, each bit-equal to an eager call
+     of its bare function on the same inputs (no program accumulates with
+     atomics) with the eager call's K1 launches and outputs unlike the
+     previous call's; a tracked frame and a keyframe frame with its window
+     BA under `torch.cuda.set_sync_debug_mode("error")`; each program's
+     host enqueue ms, device ms and kernels, replayed and eager;
+ 13. one JSON line with the kernel records (`launches`: the kernel's
      launches summed over the main paths it is on, each counted from 0
      just before its path and read just after; the times: K1 summed over
      a tracked frame's 6 calls, K2 over the tool's 12), then the last
@@ -235,6 +247,11 @@ STRESS_INTR = dict(fx=200.0, fy=200.0, cx=STRESS_HW[1] / 2 - 0.5, cy=STRESS_HW[0
 DRIFT_FRAMES = 60
 TRACK_BIAS_CPU_FRAMES, TRACK_BIAS_TOL_M = 4, 5e-5
 PROFILE_REPS = 1
+# Phase 12: the checked replays of each program, the mono cell's frames
+# the engine may take to reach them, and the calls a program's timing takes.
+REPLAY_CHECKS = 3
+PROGRAM_MONO_FRAMES = 160
+PROGRAM_TIME_REPS = 3
 # The timings summed over a tracked frame's calls (K1) or the tool's sweep (K2).
 FRAME_KEYS = ("device_ms", "host_ms", "floor_ms", "bound_ms", "library_ms", "plain_ms",
               "entry_ms")
@@ -392,21 +409,25 @@ def headline_config(VOConfig):
 
 
 def instrument(vo, torch, times):
-    """Wrap the engine's four programs with CUDA events (no host sync)."""
-    for attr, name in (("_track", "track"), ("_stereo_kf_program", "stereo_kf"),
-                       ("_ba_program", "ba"), ("_templates_program", "templates")):
-        fn = getattr(vo, attr)
+    """Wrap each program as the engine runs it (the replay of its captured
+    graph) with CUDA events (no host sync)."""
+    real = vo._program
 
-        def timed(*a, _fn=fn, _name=name, **kw):
+    def program(name):
+        prog = real(name)
+
+        def timed(*a):
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
-            out = _fn(*a, **kw)
+            out = prog(*a)
             e.record()
-            times.setdefault(_name, []).append((s, e))
+            times.setdefault(name, []).append((s, e))
             return out
 
-        setattr(vo, attr, timed)
+        return timed
+
+    vo._program = program
 
 
 def profile_frame(torch, vo, frame, stack_bytes):
@@ -565,46 +586,76 @@ def check_funnel(name, counts, loops):
 class K1Sites:
     """K1 launches by the engine program that made them: wraps the one
     function every K1 entry launches through and, at each launch, looks up
-    the call stack for the first engine program (K1_SITES)."""
+    the call stack for the first engine program (K1_SITES); and each
+    replay of a captured program (`Program._replayed`), which adds the
+    launches its graph holds to the program's site. A launch made while a
+    graph is captured is no launch and is not counted (the counter takes
+    it back too)."""
 
-    def __init__(self, extract):
-        self.extract = extract
+    def __init__(self, torch, extract):
+        from viso_tpu_torch.slam import programs
+
+        self.torch, self.extract, self.programs = torch, extract, programs
         self.real = extract._run
+        self.real_replayed = programs.Program._replayed
         self.counts = {}
 
     def __enter__(self):
+        torch, counts = self.torch, self.counts
+        key = (self.extract.launch, "launches")
+
         def run(*args, _real=self.real):
             _real(*args)
+            if torch.cuda.is_current_stream_capturing():
+                return
             frame = sys._getframe(1)
             while frame is not None and frame.f_code.co_name not in K1_SITES:
                 frame = frame.f_back
             site = K1_SITES[frame.f_code.co_name] if frame is not None else "other"
-            self.counts[site] = self.counts.get(site, 0) + 1
+            counts[site] = counts.get(site, 0) + 1
+
+        def replayed(prog, _real=self.real_replayed):
+            _real(prog)
+            if prog.counts.get(key):
+                site = K1_SITES.get(prog.name, "other")
+                counts[site] = counts.get(site, 0) + prog.counts[key]
 
         self.extract._run = run
+        self.programs.Program._replayed = replayed
         return self
 
     def __exit__(self, *exc):
         self.extract._run = self.real
+        self.programs.Program._replayed = self.real_replayed
 
 
-def mono_phase(torch, extract, dev, card):
+def render_mono():
+    """The reference's 500-frame mono corridor (`tools/mono_cell.render`)."""
+    from viso_tpu_torch.tools import mono_cell
+
+    t0 = time.perf_counter()
+    frames, Rs, ts = mono_cell.render(MONO_FRAMES)
+    print(f"rendered {len(frames)} mono frames {mono_cell.H}x{mono_cell.W} (uint8) in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    return frames, Rs, ts
+
+
+def mono_phase(torch, extract, frames, Rs, ts, dev, card):
     """Phase 7. MonocularVO (photometric window BA) on the reference's
     500-frame mono cell (`tools/mono_cell.py`, seed 0); returns K1's
     launches during the run."""
     from viso_tpu_torch.slam.engine import MonocularVO
     from viso_tpu_torch.tools import mono_cell
 
-    t0 = time.perf_counter()
     cfg = mono_cell.config()
-    frames, Rs, ts = mono_cell.render(MONO_FRAMES)
-    print(f"rendered {len(frames)} mono frames {mono_cell.H}x{mono_cell.W} (uint8) in "
-          f"{time.perf_counter() - t0:.1f} s (host)")
 
     extract.launch.launches = 0
-    vo = MonocularVO(cfg, device=dev)
+    # The engine's construction builds its templates' storage (K1).
+    sites = K1Sites(torch, extract)
+    with sites:
+        vo = MonocularVO(cfg, device=dev)
     try:
-        with K1Sites(extract) as sites, warnings.catch_warnings(record=True) as caught:
+        with sites, warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
@@ -687,7 +738,7 @@ def profile_keyframe(torch, vo, frame):
     from viso_tpu_torch.geometry import extract
 
     torch.cuda.synchronize()
-    with K1Sites(extract) as sites, profile(
+    with K1Sites(torch, extract) as sites, profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         vo.process(frame)
@@ -796,7 +847,9 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
     from viso_tpu_torch.tools import diag_loops, mono_cell
 
     extract.launch.launches = 0
-    slam = MonoSLAM(mono_cell.slam_config(), mono_cell.slam_loop_params(), device=dev)
+    sites = K1Sites(torch, extract)
+    with sites:
+        slam = MonoSLAM(mono_cell.slam_config(), mono_cell.slam_loop_params(), device=dev)
     # The pose-graph solves on the worker thread: their count and host time
     # (each ends in the copy of its result to the host), and the solves the
     # health gate accepts (each stores its solution).
@@ -817,7 +870,7 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
     recorder = LoopRecorder(torch, slam)
     funnel = diag_loops.Funnel(slam)
     try:
-        with K1Sites(extract) as sites:
+        with sites:
             nxt = slam.to_device(frames[0])
             per_frame = []
             for i in range(SLAM_FRAMES):
@@ -1154,7 +1207,8 @@ def tools_phase(torch, extract, orbit, Rs, ts, headline, dev, card):
           f"is enqueued {f['stats_wait_ms']:.3f} ms; process() {f['process_ms']:.3f} ms per "
           f"frame over {f['process_frames']} frames [{card}]")
     k1 = {r["name"]: r["launches"] for r in f["stages"]}
-    if k1["track"] != 6 or k1["templates"] <= 0 or k1["stereo_kf"] <= 0:
+    if not (k1["track"] == k1["track_eager"] == 6 and k1["templates"] == k1["templates_eager"] > 0
+            and k1["stereo_kf"] == k1["stereo_kf_eager"] > 0):
         raise AssertionError(f"profile_frame: K1 launches by stage {k1}")
     print(f"phase 11e wall {time.perf_counter() - t0:.1f} s")
     return extract.launch.launches
@@ -1226,13 +1280,13 @@ def dist_phase(torch, extract, dev, card):
                 vo = multiprocess_ba.dryrun_slam(dev, distribute_ba=distribute,
                                                  stats_deterministic=True)
                 ba_calls = []
-                program = vo._ba_program
+                run_ba = vo._run_window_ba
 
-                def counted(*a, _program=program, _calls=ba_calls):
+                def counted(*a, _run=run_ba, _calls=ba_calls):
                     _calls.append(1)
-                    return _program(*a)
+                    return _run(*a)
 
-                vo._ba_program = counted
+                vo._run_window_ba = counted
                 extract.launch.launches = 0
                 t0 = time.perf_counter()
                 for il, ir in frames:
@@ -1305,6 +1359,168 @@ def dist_phase(torch, extract, dev, card):
             and all(r["k1_launches"] > 0 for r in ranks)):
         raise AssertionError(f"(d): {ranks}")
     return launches_c + launches_d
+
+
+def bit_equal(torch, a, b):
+    """Equal shapes, dtypes and bits (a NaN equals itself)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.contiguous().view(ints), b.contiguous().view(ints)
+    return torch.equal(a, b)
+
+
+class ReplayCheck:
+    """Phase 12. Wraps an engine's programs as it runs them: calls 2 to
+    1 + REPLAY_CHECKS of each (replays of its captured graph) are each
+    preceded by an eager call of the bare function on the same inputs.
+    The replay's outputs are held against the eager call's bit for bit
+    (no program accumulates with atomics), K1's counted launches against
+    the eager call's, and the outputs against the previous checked call's
+    (new inputs give new outputs: they are re-read, not baked into the
+    graph). Keeps each program's last arguments for the timings."""
+
+    def __init__(self, torch, vo, extract):
+        from viso_tpu_torch.slam import programs
+
+        self.torch, self.extract, self.flatten = torch, extract, programs.flatten
+        self.real = vo._program
+        self.calls = collections.Counter()
+        self.rows, self.prev, self.args = [], {}, {}
+        vo._program = self.program
+
+    def done(self, names):
+        return all(self.calls[n] >= 1 + REPLAY_CHECKS for n in names)
+
+    def program(self, name):
+        torch, launch = self.torch, self.extract.launch
+        prog = self.real(name)
+
+        def call(*args):
+            self.calls[name] += 1
+            self.args[name] = args
+            if not 2 <= self.calls[name] <= 1 + REPLAY_CHECKS:
+                return prog(*args)
+            n0 = launch.launches
+            ref = [x.clone() for x in self.flatten(prog.fn(*args))[0]]
+            n_eager, n0 = launch.launches - n0, launch.launches
+            out = prog(*args)
+            n_replay = launch.launches - n0
+            got = self.flatten(out)[0]
+            prev = self.prev.get(name)
+            self.rows.append(dict(
+                name=name, call=self.calls[name], graphed=prog.graph is not None,
+                replays=prog.replays, k1_eager=n_eager, k1_replay=n_replay,
+                equal=len(got) == len(ref) and all(bit_equal(torch, a, b)
+                                                   for a, b in zip(got, ref)),
+                new=prev is None or not all(bit_equal(torch, a, b) for a, b in zip(got, prev))))
+            self.prev[name] = [x.clone() for x in got]
+            return out
+
+        return call
+
+
+def sync_error_frames(torch, vo, checker, tracked, keyframe):
+    """A tracked frame, then a keyframe frame (the decision forced) with
+    its window BA, under `set_sync_debug_mode("error")`: any call that
+    synchronises the host with the card raises. The frames are on the
+    card already (the upload may sync)."""
+    ba = checker.calls["ba"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = vo.process(*tracked)
+        vo._should_insert_keyframe = lambda n_tracked: True
+        second = vo.process(*keyframe)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        vo.__dict__.pop("_should_insert_keyframe", None)
+    torch.cuda.synchronize()
+    if first.is_keyframe or not second.is_keyframe or checker.calls["ba"] != ba + 1:
+        raise AssertionError(f"sync check frames: keyframe {first.is_keyframe} then "
+                             f"{second.is_keyframe}, {checker.calls['ba'] - ba} BAs")
+
+
+def program_times(torch, checker, names, card, label):
+    """Each program as the engine runs it (replay) and its bare function
+    (eager) on the program's last inputs: host enqueue, device ms and
+    kernels (`utils/profiling.profile_stage`), K1's launches."""
+    from viso_tpu_torch.geometry import extract
+    from viso_tpu_torch.utils import profiling
+
+    def k1():
+        return extract.launch.launches
+
+    rows = []
+    for name in names:
+        prog, args = checker.real(name), checker.args[name]
+        for kind, fn in (("replay", lambda: prog(*args)), ("eager", lambda: prog.fn(*args))):
+            r = profiling.profile_stage(f"{name} {kind}", fn, reps=PROGRAM_TIME_REPS, counter=k1)
+            rows.append(r)
+            print(f"{label} program {r['name']}: host {r['host_ms']:.3f} ms, device "
+                  f"{r['device_ms']:.3f} ms, {r['kernels']} kernels ({r['tries']} profiler "
+                  f"windows), stream {r['stream_ms']:.3f} ms, {r['launches']} K1 [{card}]")
+            if not (r["device_ms"] > 0 and r["kernels"] > 0):
+                raise AssertionError(f"{label} {r['name']}: no device time: {r}")
+        if rows[-1]["launches"] != rows[-2]["launches"]:
+            raise AssertionError(f"{label} {name}: K1 launches replay {rows[-2]['launches']} "
+                                 f"!= eager {rows[-1]['launches']}")
+    return rows
+
+
+def check_replays(checker, names, label, card):
+    rows = [r for r in checker.rows if r["name"] in names]
+    for r in rows:
+        print(f"{label} {r['name']} call {r['call']} (replay {r['replays']}): bit-equal to the "
+              f"eager call {r['equal']}, K1 {r['k1_replay']} replayed / {r['k1_eager']} eager, "
+              f"new outputs {r['new']} [{card}]")
+    short = [n for n in names if sum(r["name"] == n for r in rows) != REPLAY_CHECKS]
+    bad = [r for r in rows if not (r["graphed"] and r["equal"] and r["new"]
+                                   and r["k1_replay"] == r["k1_eager"])]
+    if short or bad:
+        raise AssertionError(f"{label}: programs without {REPLAY_CHECKS} checked replays "
+                             f"{short}, failing {bad}")
+
+
+def programs_phase(torch, extract, headline, mono_frames, dev, card):
+    """Phase 12. The engines' captured programs: at the headline's shape
+    (StereoVO: track, templates, stereo keyframe, reprojection BA) and at
+    the mono cell's (MonocularVO: track, templates, mono keyframe,
+    photometric BA), REPLAY_CHECKS replays of each held against eager
+    calls (`ReplayCheck`); a tracked frame and a keyframe frame with its
+    BA under `set_sync_debug_mode("error")`; then each program's host,
+    device ms and kernels, replayed and eager."""
+    from viso_tpu_torch.slam.engine import MonocularVO, StereoVO, VOConfig
+    from viso_tpu_torch.tools import mono_cell
+
+    for label, vo, frames, names in (
+            ("headline", StereoVO(headline_config(VOConfig), device=dev), headline,
+             ("track", "templates", "stereo_kf", "ba")),
+            ("mono cell", MonocularVO(mono_cell.config(), device=dev),
+             [(img,) for img in mono_frames[:PROGRAM_MONO_FRAMES]],
+             ("track", "templates", "mono_kf", "ba"))):
+        t0 = time.perf_counter()
+        checker = ReplayCheck(torch, vo, extract)
+        try:
+            staged = []
+            for f in frames:
+                up = vo.to_device(*f)
+                staged.append(up if isinstance(up, tuple) else (up,))
+            torch.cuda.synchronize()
+            i = 0
+            while i < len(staged) - 2 and not (checker.done(names) and vo.state == "tracking"):
+                vo.process(*staged[i])
+                i += 1
+            check_replays(checker, names, label, card)
+            sync_error_frames(torch, vo, checker, staged[i], staged[i + 1])
+            print(f"{label}: {i} frames, then a tracked frame and a keyframe frame with its "
+                  f"window BA under set_sync_debug_mode('error'): no synchronising call "
+                  f"[{card}]")
+            program_times(torch, checker, names, card, label)
+        finally:
+            vo.close()
+        print(f"phase 12 {label} wall {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1463,7 +1679,8 @@ def main() -> int:
 
     # Phase 7: MonocularVO on the 500-frame mono cell.
     t0 = time.perf_counter()
-    mono_k1 = mono_phase(torch, extract, dev, card)
+    mono_frames, mono_Rs, mono_ts = render_mono()
+    mono_k1 = mono_phase(torch, extract, mono_frames, mono_Rs, mono_ts, dev, card)
     print(f"phase 7 wall {time.perf_counter() - t0:.1f} s")
 
     # Phase 8: the CLI on the card.
@@ -1487,7 +1704,12 @@ def main() -> int:
     tools_k1 = tools_phase(torch, extract, orbit, orbit_Rs, orbit_ts, frames, dev, card)
     print(f"phase 11 wall {time.perf_counter() - t0:.1f} s")
 
-    # Phase 12: results.
+    # Phase 12: the captured programs.
+    t0 = time.perf_counter()
+    programs_phase(torch, extract, frames, mono_frames, dev, card)
+    print(f"phase 12 wall {time.perf_counter() - t0:.1f} s")
+
+    # Phase 13: results.
     print(f"total wall {time.perf_counter() - t_start:.1f} s")
     # ms, plain_ms, bound_ms, library_ms: device times (CUDA graph replay),
     # K1 summed over a tracked frame's 6 calls, K2 over the tool's 12 calls.

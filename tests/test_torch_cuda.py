@@ -350,3 +350,80 @@ def test_two_gloo_ranks_on_one_card(cuda_device):
         np.testing.assert_allclose(r["points"], r["local_points"], rtol=0, atol=1e-2)
         for key in ("R", "t", "points"):
             np.testing.assert_array_equal(r[key], ranks[0][key])
+
+
+# The engines' programs as CUDA graphs (slam/programs.py): the small
+# configuration of tests/test_torch_engine.py and tests/test_torch_mono.py.
+ENGINE_HW = (192, 256)
+ENGINE_CFG = dict(height=192, width=256, max_keyframes=6, max_landmarks=384,
+                  num_features=192, detect_grid=(4, 6), fast_threshold=15.0, baseline=0.3,
+                  max_disparity=48, kf_min_gap=2, kf_max_gap=4, fx=200.0, fy=200.0,
+                  cx=127.5, cy=95.5)
+ENGINE_MONO = dict(ENGINE_CFG, fast_threshold=10.0, kf_max_gap=6, kf_min_visible_frac=0.45,
+                   min_init_tracks=25, disparity_squared_thresh=25.0)
+
+
+def _engine_frames(mono: bool, n: int):
+    from viso_tpu_torch.data import synthetic
+    from viso_tpu_torch.geometry import camera
+
+    H, W = ENGINE_HW
+    scene = synthetic.corridor_scene(np.random.default_rng(7), tex_size=512)
+    intr = camera.Intrinsics.create(200.0, 200.0, 127.5, 95.5)
+    Rs, ts = synthetic.forward_trajectory(n, step=0.15 if mono else 0.25, yaw_rate=0.004)
+    out = []
+    for R, t in zip(Rs, ts):
+        il, ir, _ = synthetic.make_stereo_pair(scene, intr, R, t, H, W, baseline=0.3)
+        u8 = [np.clip(x, 0, 255).astype(np.uint8) for x in (il, ir)]
+        out.append(u8[:1] if mono else u8)
+    return out
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mono,name", [(False, "track"), (False, "templates"),
+                                       (False, "stereo_kf"), (False, "ba"),
+                                       (True, "mono_kf"), (True, "ba")])
+def test_program_replays_equal_eager_calls_on_cuda(cuda_device, mono, name):
+    """Each program, captured at its first call, replays bit-equal to an
+    eager call of its bare function on the same inputs, with the eager
+    call's K1 launches, at its second to fourth calls."""
+    from viso_tpu_torch.slam import programs
+    from viso_tpu_torch.slam.engine import MonocularVO, StereoVO, VOConfig
+
+    vo = (MonocularVO(VOConfig(**ENGINE_MONO), device=cuda_device) if mono
+          else StereoVO(VOConfig(**ENGINE_CFG), device=cuda_device))
+    real, checked = vo._program, []
+
+    def program(n):
+        prog = real(n)
+        if n != name:
+            return prog
+
+        def call(*args):
+            if not 1 <= prog.replays <= 3:
+                return prog(*args)
+            before = t_ext.launch.launches
+            ref = [x.clone() for x in programs.flatten(prog.fn(*args))[0]]
+            eager, before = t_ext.launch.launches - before, t_ext.launch.launches
+            out = prog(*args)
+            replayed = t_ext.launch.launches - before
+            got = programs.flatten(out)[0]
+            checked.append(prog.graph is not None and replayed == eager
+                           and all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, ref)))
+            return out
+
+        return call
+
+    vo._program = program
+    try:
+        for f in _engine_frames(mono, 40):
+            vo.process(*f)
+            if len(checked) == 3:
+                break
+    finally:
+        vo.close()
+    assert checked == [True] * 3

@@ -26,8 +26,8 @@ from viso_tpu.ops import pyramid as j_pyramid
 from viso_tpu.utils import metrics as j_metrics
 from viso_tpu_torch.data.synthetic import so3_exp
 from viso_tpu_torch.tools import (diag_drift, diag_loops, diag_mono_seam, diag_track_bias,
-                                  multiprocess_ba, profile_direct, profile_frame,
-                                  profile_track)
+                                  multiprocess_ba, profile_device, profile_direct,
+                                  profile_frame, profile_track)
 
 torch.set_num_threads(2)
 
@@ -41,6 +41,7 @@ TOOLS = {
     "profile_frame": (profile_frame, SMALL),
     "profile_track": (profile_track, SMALL),
     "profile_direct": (profile_direct, SMALL),
+    "profile_device": (profile_device, ["--frames", "2", "--height", "96", "--width", "320"]),
 }
 
 
@@ -70,6 +71,14 @@ def test_tool_runs_on_the_cpu_when_asked(capsys, name):
         assert out["frames"] == 8 and np.isfinite(out["ate_rmse_m"])
     if name == "diag_track_bias":
         assert len(out["rows"]) == 2 and all(r["aligned"] > 50 for r in out["rows"])
+    if name == "profile_frame":
+        names = [st["name"] for st in stages]
+        for prog in ("track", "templates", "stereo_kf", "ba"):
+            assert prog in names and prog + "_eager" in names
+    if name == "profile_device":
+        assert out["frames"] == 2 and out["burst_s"] > 0 and out["k1_launches_per_frame"] == 0
+        for key in ("on_device_fps", "device_ms_per_frame", "kernels_per_frame"):
+            assert out[key] is None      # not measured on the CPU
 
 
 @pytest.mark.parametrize("name", sorted({n.split()[0] for n in TOOLS}))

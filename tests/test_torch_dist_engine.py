@@ -92,7 +92,8 @@ def test_distributed_stereo_vo_matches_jax_package(frames14, port_runs):
 def test_world_one_distributed_slam(corridor):  # noqa: F811
     """tests/test_dist_engine.py's StereoSLAM (loop database and pose-graph
     hooks on) with its window BA on the group; no engine program writes
-    into the map tensors a keyframe snapshot holds."""
+    into what the engine keeps of an earlier frame
+    (`debug.snapshot_versions`)."""
     frames, (Rs, ts) = render_forward(corridor, 10, stereo=True)
     vo = StereoSLAM(_config(distribute_ba=True),
                     LoopParams(capacity=16, num_features=64, guard=4), device="cpu")

@@ -101,15 +101,21 @@ def test_debug_finite_state_audit():
 
 
 def test_assert_no_donation_catches_in_place_writes():
+    """The engine's state is written in place (the captured programs read
+    fixed addresses); what it keeps of earlier frames is not."""
     vo = StereoVO(VOConfig(**SMALL), device="cpu")
+    vo._record(num_tracked=0)
+    vo._record(num_tracked=0)
     snap = debug.snapshot_versions(vo)
-    assert {"map.points", "map.kf_pyr[0]", "R", "t"} <= {name for name, _, _ in snap}
-    # A functional update (a new tensor) leaves the snapshot intact.
+    assert {"results[0].R", "results[0].t", "results[1].R"} <= {name for name, _, _ in snap}
+    # Writes into the state, map and pose, leave the snapshot intact.
     vo.map = vo.map._replace(points=vo.map.points + 1.0)
+    vo.R, vo.t = 2.0 * vo.R, vo.t + 1.0
     debug.assert_no_donation(snap)
+    assert float(vo.results[1].t.sum()) == 0.0 and float(vo.t.sum()) == 3.0
     # An in-place write into a tensor the snapshot holds is caught.
-    [x for name, x, _ in snap if name == "map.obs_uv"][0][0, 0, 0] = 5.0
-    with pytest.raises(AssertionError, match="map.obs_uv"):
+    [x for name, x, _ in snap if name == "results[1].t"][0][0] = 5.0
+    with pytest.raises(AssertionError, match=r"results\[1\]\.t"):
         debug.assert_no_donation(snap)
     vo.close()
 

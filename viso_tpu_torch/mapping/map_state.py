@@ -60,18 +60,47 @@ def empty(K: int, L: int, img_shape, num_levels: int = 4, *, device) -> MapState
     )
 
 
+def row(x, idx):
+    """`x[idx]` along dim 0 for an int or a 0-d integer tensor.
+
+    A program's slot arguments are 0-d tensors on the device (the
+    counterpart of the JAX jit's traced arguments). Indexing with a 0-d
+    tensor reads it on the host (`x[t]` calls `.item()`); `index_select`
+    keeps it on the device."""
+    if isinstance(idx, torch.Tensor):
+        return x.index_select(0, idx.reshape(1))[0]
+    return x[idx]
+
+
+def _device_index(idx):
+    """An advanced index with each 0-d tensor made 1-element, so that
+    indexing leaves it on the device (it broadcasts as the int would)."""
+    if isinstance(idx, tuple):
+        return tuple(_device_index(i) for i in idx)
+    if isinstance(idx, torch.Tensor) and idx.dim() == 0:
+        return idx.reshape(1)
+    return idx
+
+
 def _set(x, idx, value):
     """Functional x.at[idx].set(value).
 
     A Python scalar goes in with fill_ on the slot's view: item assignment
     of a host scalar into a CUDA tensor copies it from the host and
-    synchronises.
+    synchronises. A 0-d tensor slot writes through `index_fill_` /
+    `index_copy_`, which keep it on the device.
     """
     y = x.clone()
-    if isinstance(value, (bool, int, float)):
+    if isinstance(idx, torch.Tensor) and idx.dim() == 0:
+        rows = idx.reshape(1)
+        if isinstance(value, (bool, int, float)):
+            y.index_fill_(0, rows, value)
+        else:
+            y.index_copy_(0, rows, value.to(y.dtype).expand(y.shape[1:]).unsqueeze(0))
+    elif isinstance(value, (bool, int, float)):
         y[int(idx)].fill_(value)
     else:
-        y[idx] = value
+        y[_device_index(idx)] = value
     return y
 
 
@@ -102,8 +131,9 @@ def evict_keyframe(m: MapState, slot: int) -> MapState:
 
 def set_observations(m: MapState, kf_slot: int, lm_idx, uv, valid) -> MapState:
     """Write observations of landmarks `lm_idx` (M,) in keyframe `kf_slot`."""
-    old_uv = m.obs_uv[kf_slot, lm_idx]
-    old_mask = m.obs_mask[kf_slot, lm_idx]
+    idx = _device_index((kf_slot, lm_idx))
+    old_uv = m.obs_uv[idx]
+    old_mask = m.obs_mask[idx]
     return m._replace(
         obs_uv=_set(
             m.obs_uv, (kf_slot, lm_idx), torch.where(valid[:, None], uv, old_uv)
@@ -147,7 +177,10 @@ def _where(cond, x, y):
 
 
 def select(cond, a: MapState, b: MapState) -> MapState:
-    """Field-wise torch.where(cond, a, b); a field both share is kept."""
+    """Field-wise torch.where(cond, a, b); a field both share is kept. A
+    Python bool picks one map."""
+    if isinstance(cond, bool):
+        return a if cond else b
     return MapState(*(_where(cond, x, y) for x, y in zip(a, b)))
 
 

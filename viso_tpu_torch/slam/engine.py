@@ -5,7 +5,10 @@
 Frame-rate decisions (keyframe policy, lost tracking, initialization
 gates) are host-side Python on per-frame scalars; every per-feature /
 per-pixel computation is tensor code on the engine's device, in these
-programs:
+programs (`slam/programs.Program`: on a CUDA engine each is captured once
+as a CUDA graph and replayed every frame, the JAX engine's jit builders
+and `_kernels` cache; on the CPU each runs eagerly through the same
+static buffers):
 
   * track (every frame): pyramid, direct GN against frozen keyframe
     templates, 2-level LK alignment, 4-step PnP refine, acceleration gate;
@@ -24,6 +27,16 @@ fixed or opportunistic number of frames later (`stats_max_lag`,
 `stats_hard_lag`, `stats_deterministic`, as in the reference). The
 monocular bootstrap reads its gates on the host, as the reference does
 (`MonocularVO._try_initialize`). All shapes are static across frames.
+
+The engine state a program reads (the map, the pose, the previous pose,
+the velocity twist, the templates and their landmark subset) lives in
+storage allocated once, in `BaseVO.__init__`: a graph reads addresses,
+not attributes. Assigning one of them writes into that storage
+(`commit`). Slots, eviction flags and frame ids reach a program as 0-d
+tensors (the JAX jit's traced arguments), and its branches on them are
+selects. A program's outputs are overwritten by its next call: what the
+engine keeps longer (a frame's pose in `results`, a segment's base pose)
+is a copy.
 
 `BaseVO._post_keyframe` is the keyframe hook of the SLAM layer
 (`slam/full.py`); here it is a no-op.
@@ -49,6 +62,11 @@ from viso_tpu_torch.geometry import camera as cam_mod
 from viso_tpu_torch.geometry import se3, triangulation
 from viso_tpu_torch.mapping import map_state
 from viso_tpu_torch.ops import align, direct, fast, lk, pnp, pyramid, stereo, twoview
+from viso_tpu_torch.slam import programs
+
+# The engine programs: name -> the method that is the bare function.
+PROGRAMS = {"track": "_track", "templates": "_templates_program", "ba": "_ba_program",
+            "stereo_kf": "_stereo_kf_program", "mono_kf": "_mono_kf_program"}
 
 
 @dataclass
@@ -174,8 +192,48 @@ class HostFetch:
         return [h.numpy() for h in self.host]
 
 
+def commit(dst, src):
+    """Write `src` into the storage of `dst` (a tensor, or a tree of them
+    shaped alike) in place; a tensor written onto itself is skipped."""
+    d_leaves, s_leaves = programs.flatten(dst)[0], programs.flatten(src)[0]
+    if len(d_leaves) != len(s_leaves):
+        raise ValueError(f"cannot write a tree of {len(s_leaves)} tensors into {len(d_leaves)}")
+    for d, x in zip(d_leaves, s_leaves):
+        if d.shape != x.shape:
+            raise ValueError(f"cannot write {tuple(x.shape)} into state of {tuple(d.shape)}")
+        if d.data_ptr() != x.data_ptr():
+            d.copy_(x)
+
+
+class _State:
+    """An engine state attribute in storage allocated at its first
+    assignment (in `BaseVO.__init__`); every later assignment writes into
+    that storage (`commit`)."""
+
+    def __set_name__(self, owner, name):
+        self.key = "_state_" + name
+
+    def __get__(self, obj, owner=None):
+        return self if obj is None else obj.__dict__[self.key]
+
+    def __set__(self, obj, value):
+        if self.key in obj.__dict__:
+            commit(obj.__dict__[self.key], value)
+        else:
+            obj.__dict__[self.key] = value
+
+
 class BaseVO:
     """Shared machinery of the engines."""
+
+    map = _State()
+    R = _State()
+    t = _State()
+    prev_R = _State()
+    prev_t = _State()
+    vel_xi = _State()
+    _templates = _State()
+    _active_idx = _State()
 
     # How a frame's stats start their way to the host: called with the
     # stats tensor, returns an object with `done()` and `result()` (the
@@ -202,10 +260,20 @@ class BaseVO:
         self.last_pyr = None
         self.R = torch.eye(3, dtype=torch.float32, device=self.device)
         self.t = torch.zeros(3, dtype=torch.float32, device=self.device)
-        self.prev_R = self.R
-        self.prev_t = self.t
+        self.prev_R = self.R.clone()
+        self.prev_t = self.t.clone()
         # Filtered per-frame velocity twist (EMA over healthy frames).
         self.vel_xi = torch.zeros(6, dtype=torch.float32, device=self.device)
+        # The templates' storage, shaped by a build from the empty map.
+        templates, active = self._templates_program(self.map, 0)
+        self._templates = tuple(type(lvl)(*(x.clone() for x in lvl)) for lvl in templates)
+        self._active_idx = active.clone()
+        # The window BA's frozen cameras, written before each BA.
+        self._cam_fixed = torch.zeros(config.max_keyframes, dtype=torch.bool, device=self.device)
+        state = (self.map, self.R, self.t, self.prev_R, self.prev_t, self.vel_xi,
+                 self._templates, self._active_idx, self._cam_fixed)
+        self._owned = frozenset(x.data_ptr() for x in programs.flatten(state)[0])
+        self._kernels: dict[str, programs.Program] = {}
         self.last_kf_frame = -(10**9)
         self.kf_order: list[int] = []   # slots, oldest first
         self.results: list[FrameResult] = []
@@ -296,6 +364,15 @@ class BaseVO:
         )
         return torch.cat([rho, phi])
 
+    def _program(self, name: str) -> programs.Program:
+        """The engine's program `name` (`PROGRAMS`), captured at its first
+        call on a CUDA engine and replayed after."""
+        prog = self._kernels.get(name)
+        if prog is None:
+            prog = self._kernels[name] = programs.Program(
+                getattr(self, PROGRAMS[name]), self.device, self._owned)
+        return prog
+
     # -- device programs -----------------------------------------------
     def _track(self, m: map_state.MapState, templates, active, img, R, t, vel_xi):
         """The per-frame program: pyramid + direct + align + refine + gate.
@@ -369,25 +446,27 @@ class BaseVO:
 
     def _templates_program(self, m: map_state.MapState, slot: int):
         """Active landmark subset (valid first, then those observed in the
-        new keyframe) and their frozen templates from keyframe `slot`."""
+        new keyframe) and their frozen templates from keyframe `slot` (an
+        int or a 0-d tensor)."""
         cfg = self.cfg
+        row = map_state.row
         A = min(cfg.track_landmarks, cfg.max_landmarks)
         priority = (
             m.point_mask.to(torch.int32) * 2
-            + (m.point_mask & m.obs_mask[slot]).to(torch.int32)
+            + (m.point_mask & row(m.obs_mask, slot)).to(torch.int32)
         )
         active = torch.argsort(-priority, stable=True)[:A]
         pts_a = m.points[active]
         mask_a = m.point_mask[active]
-        pyr_kf = tuple(lvl[slot] for lvl in m.kf_pyr)
+        pyr_kf = tuple(row(lvl, slot) for lvl in m.kf_pyr)
         templates = direct.build_templates(
-            pyr_kf, m.kf_R[slot], m.kf_t[slot], pts_a, mask_a, self.intr
+            pyr_kf, row(m.kf_R, slot), row(m.kf_t, slot), pts_a, mask_a, self.intr
         )
         return templates, active
 
     def _refresh_templates(self, slot: int):
         """(Re)build the frozen tracking templates from keyframe `slot`."""
-        self._templates, self._active_idx = self._templates_program(self.map, slot)
+        self._templates, self._active_idx = self._program("templates")(self.map, slot)
 
     # What ba_backend="auto" resolves to (MonocularVO: "photometric").
     _default_ba_backend = "reprojection"
@@ -443,6 +522,9 @@ class BaseVO:
         return m, torch.where(sane, R_new, R0), torch.where(sane, t_new, t0)
 
     def _ba_program(self, m: map_state.MapState, cam_fixed, pose_slot: int, R0, t0):
+        """Window BA of the map with the cameras `cam_fixed` frozen, gated
+        on the shift of keyframe `pose_slot` (an int or a 0-d tensor) from
+        the tracking pose (R0, t0). Returns (map, final cost, R, t)."""
         cfg = self.cfg
         if self._ba_backend() == "photometric":
             prob, intr_l = map_state.as_photo_ba_problem(m, self.intr, level=cfg.photo_ba_level)
@@ -471,25 +553,25 @@ class BaseVO:
                 out, info = ba.solve_impl(prob, params)
         m_new = map_state.update_from_ba(m, out.R, out.t, out.points)
         m_out, R_out, t_out = self._gate_ba_adoption(
-            m, m_new, out.R[pose_slot], out.t[pose_slot], R0, t0, cfg
+            m, m_new, map_state.row(out.R, pose_slot), map_state.row(out.t, pose_slot),
+            R0, t0, cfg
         )
         return m_out, info["final_cost"], R_out, t_out
 
     def _run_window_ba(self, fixed_slots):
         self._ba_backend()
-        cam_fixed = torch.zeros(self.cfg.max_keyframes, dtype=torch.bool,
-                                device=self.device)
+        cam_fixed = self._cam_fixed
+        cam_fixed.zero_()
         for s in fixed_slots:
             cam_fixed[s].fill_(True)   # no host scalar copy (that syncs)
-        slot = self.kf_order[-1]
-        R0, t0 = self.R, self.t
-        self.map, final_cost, self.R, self.t = self._ba_program(
-            self.map, cam_fixed, slot, R0, t0
-        )
+        # The distributed BA's collectives cannot be captured: it runs eagerly.
+        solve = self._ba_program if self.cfg.distribute_ba else self._program("ba")
+        m, final_cost, R, t = solve(self.map, cam_fixed, self.kf_order[-1], self.R, self.t)
         # Carry BA's pose correction onto prev_* so rel(T, prev) -- the
         # constant-velocity estimate -- is unchanged.
-        Gi = se3.compose(*se3.inverse(R0, t0), self.R, self.t)
+        Gi = se3.compose(*se3.inverse(self.R, self.t), R, t)
         self.prev_R, self.prev_t = se3.compose(self.prev_R, self.prev_t, *Gi)
+        self.map, self.R, self.t = m, R, t
         return final_cost
 
     def _stats_hard_lag(self) -> int:
@@ -507,7 +589,7 @@ class BaseVO:
         """Run the track program; returns (ok_align (L,), refined_uv (L, 2),
         n_tracked int, pyr). n_tracked comes from the stats pipeline and is
         a few frames stale by design."""
-        R_new, t_new, ok_align, refined, stats, pyr, vel_new = self._track(
+        R_new, t_new, ok_align, refined, stats, pyr, vel_new = self._program("track")(
             self.map, self._templates, self._active_idx, img,
             self.R, self.t, self.vel_xi,
         )
@@ -543,7 +625,8 @@ class BaseVO:
         n_tracked = getattr(self, "_n_tracked_cache", self.cfg.num_features)
         if self.debug_overlay:
             # Stamped with the frame index so that overlay writers skip
-            # data from before a re-init or init frame.
+            # data from before a re-init or init frame. The track
+            # program's outputs: valid until its next call.
             self._last_track = (ok_align, refined, pyr[0], self.frame_idx)
         return ok_align, refined, n_tracked, pyr
 
@@ -592,7 +675,7 @@ class BaseVO:
         return _pull_poses(self.results)
 
     def _record(self, **kw):
-        self.results.append(FrameResult(R=self.R, t=self.t, **kw))
+        self.results.append(FrameResult(R=self.R.clone(), t=self.t.clone(), **kw))
 
 
 class StereoVO(BaseVO):
@@ -662,16 +745,17 @@ class StereoVO(BaseVO):
                            frame_id: int, pyr, img_left, img_right,
                            ok_align, refined, have_existing: bool):
         """Keyframe insertion: evict, insert, record tracked observations,
-        detect, stereo-match, backproject and allocate new landmarks."""
+        detect, stereo-match, backproject and allocate new landmarks.
+        `slot`, `do_evict`, `frame_id` and `have_existing` are Python
+        values or 0-d tensors."""
         cfg = self.cfg
         intr = self.intr
-        if do_evict:
-            m = map_state.evict_keyframe(m, slot)
+        m = map_state.select(do_evict, map_state.evict_keyframe(m, slot), m)
         img_left = img_left.to(torch.float32)
         img_right = img_right.to(torch.float32)
         m = map_state.insert_keyframe(m, slot, R, t, frame_id, pyr)
         L = m.points.shape[0]
-        existing = ok_align if have_existing else torch.zeros_like(ok_align)
+        existing = ok_align & have_existing
         m = map_state.set_observations(
             m, slot, torch.arange(L, device=self.device), refined, existing
         )
@@ -706,7 +790,7 @@ class StereoVO(BaseVO):
             ok_align = torch.zeros(cfg.max_landmarks, dtype=torch.bool, device=self.device)
             refined = torch.zeros((cfg.max_landmarks, 2), dtype=torch.float32,
                                   device=self.device)
-        self.map = self._stereo_kf_program(
+        self.map = self._program("stereo_kf")(
             self.map, slot, evict, self.R, self.t, self.frame_idx, pyr,
             img_left, img_right, ok_align, refined, existing_obs is not None,
         )
@@ -735,7 +819,7 @@ class MonocularVO(BaseVO):
         # (ref_pyr, ref_kps, chained_cur_kps, mask, ref_frame_idx)
         self.init_ref = None
         # World->cam pose of the init segment's reference camera.
-        self.init_base = (self.R, self.t)
+        self.init_base = (self.R.clone(), self.t.clone())
         self.num_reinits = 0
 
     def to_device(self, img):
@@ -754,6 +838,9 @@ class MonocularVO(BaseVO):
         else:
             ok_align, refined, n_tracked, pyr = self._track_landmarks(img)
             if self._update_lost(n_tracked):
+                # The new segment keeps this pyramid past the track
+                # program's next call: its own copy.
+                pyr = tuple(lvl.clone() for lvl in pyr)
                 self._reinitialize(pyr)
                 self._record(num_tracked=n_tracked, num_landmarks=0,
                              is_keyframe=False, state="init")
@@ -812,7 +899,7 @@ class MonocularVO(BaseVO):
         )
         self.kf_order = []
         self.state = "init"
-        self.init_base = (self.R, self.t)
+        self.init_base = (self.R.clone(), self.t.clone())
         self.prev_R, self.prev_t = self.R, self.t   # zero velocity
         # Velocity filter: carry the pre-loss per-frame increment when one
         # exists (it also drives _dead_reckon), else reset.
@@ -908,7 +995,7 @@ class MonocularVO(BaseVO):
             uv, _, mask = self._detect(pyr)
             self.init_ref = (pyr, uv, uv, mask, self.frame_idx)
             # Anchor the segment at the reference frame's current pose.
-            self.init_base = (self.R, self.t)
+            self.init_base = (self.R.clone(), self.t.clone())
             return
 
         x1 = cam_mod.normalize(ref_kps, self.intr)
@@ -991,14 +1078,15 @@ class MonocularVO(BaseVO):
         """Keyframe insertion: evict, insert with the tracked observations,
         FAST in the previous keyframe, LK to the new frame, two-view
         triangulation with reprojection and parallax gates, far points for
-        low-parallax tracks, landmark allocation."""
+        low-parallax tracks, landmark allocation. `slot`, `do_evict`,
+        `prev_slot` and `frame_id` are Python values or 0-d tensors."""
         cfg = self.cfg
         intr = self.intr
-        if do_evict:
-            m = map_state.evict_keyframe(m, slot)
-        prev_R = m.kf_R[prev_slot]
-        prev_t = m.kf_t[prev_slot]
-        prev_pyr = tuple(lvl[prev_slot] for lvl in m.kf_pyr)
+        row = map_state.row
+        m = map_state.select(do_evict, map_state.evict_keyframe(m, slot), m)
+        prev_R = row(m.kf_R, prev_slot)
+        prev_t = row(m.kf_t, prev_slot)
+        prev_pyr = tuple(row(lvl, prev_slot) for lvl in m.kf_pyr)
         m = map_state.insert_keyframe(m, slot, R, t, frame_id, pyr)
         L = m.points.shape[0]
         m = map_state.set_observations(
@@ -1008,7 +1096,7 @@ class MonocularVO(BaseVO):
         # current frame, triangulate with the two keyframe poses.
         uv_prev, _, det_mask = self._detect(prev_pyr)
         det_mask = det_mask & ~_near_existing(
-            uv_prev, m.obs_uv[prev_slot], m.obs_mask[prev_slot], 8.0
+            uv_prev, row(m.obs_uv, prev_slot), row(m.obs_mask, prev_slot), 8.0
         )
         uv_cur, _, ok_trk = lk.track(prev_pyr, pyr, uv_prev, det_mask)
         x1 = cam_mod.normalize(uv_prev, intr)
@@ -1059,7 +1147,7 @@ class MonocularVO(BaseVO):
         evict = len(self.kf_order) >= cfg.max_keyframes
         slot = self._next_kf_slot_peek()
         self.kf_order.append(slot)
-        self.map = self._mono_kf_program(
+        self.map = self._program("mono_kf")(
             self.map, slot, evict, prev_slot, self.R, self.t, self.frame_idx, pyr,
             ok_align, refined,
         )

@@ -15,7 +15,10 @@ descriptors and landmarks: one function of tensor ops on the device),
 starts non-blocking copies of what the worker reads on the host into
 pinned memory, records a CUDA event after them and enqueues. The worker
 waits on that event before it reads a byte: a non-blocking copy has not
-landed when `.to("cpu", non_blocking=True)` returns. Node ids are
+landed when `.to("cpu", non_blocking=True)` returns. On a CUDA engine the
+worker's device work runs on a stream of its own, made to wait on the
+same event, so that it never lands on a stream the dispatch thread is
+capturing a program from (`slam/programs.py`). Node ids are
 assigned at enqueue time, so frame -> node anchoring stays exact;
 `trajectory()` / `graph_trajectory()` join the worker first.
 
@@ -35,6 +38,7 @@ mono), how it detects a loop and how it solves. A stereo node's scale is
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import os
 import sys
 
@@ -118,6 +122,7 @@ class LoopLayer:
             max_workers=1, thread_name_prefix=self._thread_name
         )
         self._hook_last = None
+        self._loop_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._next_node = 0
         # Loop edges added since the last accepted solve (indices into
         # pg_edges / loops): a rejected solve rolls all of them back.
@@ -236,8 +241,9 @@ class LoopLayer:
         placeholder node (the raw pose, scale 1), so ids stay dense for
         later hooks and trajectory()."""
         try:
-            self._hook_task_impl(node_id, digest, host, frame_idx, tracked,
-                                 recovery_frame, seam_t, seam_r)
+            with self._on_loop_stream(host, digest):
+                self._hook_task_impl(node_id, digest, host, frame_idx, tracked,
+                                     recovery_frame, seam_t, seam_r)
         except Exception as e:  # noqa: BLE001 -- record, don't poison the worker
             self.hook_errors.append(e)
             print(f"[{self._thread_name}] keyframe hook failed (node {node_id}): "
@@ -254,6 +260,21 @@ class LoopLayer:
                 self.pg_raw_t.append(t_np.copy())
                 self._add_estimate(1.0, R_np.copy(), t_np.copy())
                 self.pg_frame.append(frame_idx)
+
+    @contextlib.contextmanager
+    def _on_loop_stream(self, host, digest):
+        """The worker's device work on its own stream (CUDA), ordered after
+        the digest by the fetch's event; the digest's tensors are marked
+        as used there, so their memory is not reused before it is done."""
+        stream = self._loop_stream
+        if stream is None:
+            yield
+            return
+        stream.wait_event(host.event)
+        for x in digest:
+            x.record_stream(stream)
+        with torch.cuda.stream(stream):
+            yield
 
     def _hook_task_impl(self, node_id, digest, host, frame_idx, tracked,
                         recovery_frame, seam_t=0.0, seam_r=0.0):

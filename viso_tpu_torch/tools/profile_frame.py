@@ -13,10 +13,17 @@ calls after a warm-up):
 
   tiny dispatch+sync   one elementwise op and its synchronisation;
   upload               one uint8 image to the device;
-  track                `StereoVO._track`, the per-frame program;
-  templates            `_templates_program`, once per keyframe;
-  stereo_kf            `_stereo_kf_program`, the keyframe insertion;
-  ba                   `_ba_program`, the window BA;
+  track                the per-frame program as the engine runs it: the
+                       replay of its captured CUDA graph
+                       (`vo._program("track")`; on the CPU an eager call
+                       through the same static buffers);
+  templates            the templates program, once per keyframe;
+  stereo_kf            the keyframe insertion program;
+  ba                   the window BA program;
+  track_eager, templates_eager, stereo_kf_eager, ba_eager
+                       the bare functions (`StereoVO._track`,
+                       `_templates_program`, `_stereo_kf_program`,
+                       `_ba_program`) on the same inputs, eagerly;
   stats fetch          a `HostFetch` of the track's stats and its result
                        after the device is idle (the copy alone), and
                        right after the track is enqueued (what a
@@ -109,7 +116,7 @@ def stats_fetch(vo, img, reps: int):
 def profile(device, reps: int = 5, height: int = H, width: int = W, frames=None) -> dict:
     """The tool's stages and process() timings on `device`; `frames`, the
     tool's rendered frames when the caller already has them."""
-    from viso_tpu_torch.slam.engine import StereoVO, _upload
+    from viso_tpu_torch.slam.engine import PROGRAMS, StereoVO, _upload
     from viso_tpu_torch.utils import profiling
 
     cfg = config(height, width)
@@ -124,20 +131,23 @@ def profile(device, reps: int = 5, height: int = H, width: int = W, frames=None)
         L = cfg.max_landmarks
         no_obs = (torch.zeros(L, dtype=torch.bool, device=device),
                   torch.zeros((L, 2), dtype=torch.float32, device=device))
-        cam_fixed = torch.zeros(cfg.max_keyframes, dtype=torch.bool, device=device)
-        cam_fixed[vo.kf_order[0]] = True
+        # The engine's own frozen-camera buffer (the BA program reads it
+        # in place).
+        cam_fixed = vo._cam_fixed
+        cam_fixed.zero_()
+        cam_fixed[vo.kf_order[0]].fill_(True)
         x = torch.zeros((), device=device)
-        stages = {
-            "tiny dispatch+sync": lambda: x + 1,
-            "upload": lambda: _upload(il8, device),
-            "track": lambda: vo._track(vo.map, vo._templates, vo._active_idx, img_l,
-                                       vo.R, vo.t, vo.vel_xi),
-            "templates": lambda: vo._templates_program(vo.map, slot),
-            "stereo_kf": lambda: vo._stereo_kf_program(vo.map, slot, False, vo.R, vo.t, 99,
-                                                       vo.last_pyr, img_l, img_r, *no_obs,
-                                                       False),
-            "ba": lambda: vo._ba_program(vo.map, cam_fixed, slot, vo.R, vo.t),
+        args = {
+            "track": (vo.map, vo._templates, vo._active_idx, img_l, vo.R, vo.t, vo.vel_xi),
+            "templates": (vo.map, slot),
+            "stereo_kf": (vo.map, slot, False, vo.R, vo.t, 99, vo.last_pyr, img_l, img_r,
+                          *no_obs, False),
+            "ba": (vo.map, cam_fixed, slot, vo.R, vo.t),
         }
+        stages = {"tiny dispatch+sync": lambda: x + 1, "upload": lambda: _upload(il8, device)}
+        for name, a in args.items():
+            stages[name] = lambda prog=vo._program(name), a=a: prog(*a)
+            stages[name + "_eager"] = lambda fn=getattr(vo, PROGRAMS[name]), a=a: fn(*a)
         rows = [profiling.profile_stage(name, fn, reps, counter=k1_launches)
                 for name, fn in stages.items()]
         copy_ms, wait_ms = stats_fetch(vo, img_l, reps)

@@ -10,9 +10,13 @@
   * `snapshot_versions` / `assert_no_donation`: the reference pins that no
     engine kernel donates a buffer, because the loop layer's digest and
     keyframe snapshots read map arrays after their successors exist. The
-    torch form of that invariant: no engine program writes in place into a
-    map tensor a snapshot still holds. Every in-place write bumps a
-    tensor's `_version`, so the check compares the counters.
+    port's map, pose and templates live in storage written in place every
+    frame (the captured programs read fixed addresses), so its form of
+    that invariant is about what the engine keeps of the past: no program
+    writes into a tensor the engine holds as a record of an earlier frame
+    (each frame's pose in `results`, a monocular segment's base pose).
+    Every in-place write bumps a tensor's `_version`, so the check
+    compares the counters.
   * `delay_stats(engine, rng, max_delay)`: stats that land late. Replaces
     the engine's `_host_fetch` with fetches whose `done()` stays false
     until the engine has advanced a drawn number of frames (a slow
@@ -90,30 +94,25 @@ def check_finite_state(engine) -> list[str]:
 
 
 def snapshot_versions(engine) -> list:
-    """(name, tensor, version) for every tensor of the engine's current
-    map, pose and motion model: what a keyframe digest snapshot holds."""
+    """(name, tensor, version) for every tensor the engine keeps as a
+    record of an earlier frame: each frame's pose in `results` and, for a
+    monocular engine, its segment's base pose."""
     out = []
-    m = engine.map
-    for name in m._fields:
-        v = getattr(m, name)
-        for i, x in enumerate(v if isinstance(v, tuple) else (v,)):
-            label = f"map.{name}[{i}]" if isinstance(v, tuple) else f"map.{name}"
-            out.append((label, x, x._version))
-    for name in ("R", "t", "vel_xi"):
-        x = getattr(engine, name)
+    for k, r in enumerate(engine.results):
+        out += [(f"results[{k}].R", r.R, r.R._version), (f"results[{k}].t", r.t, r.t._version)]
+    for name, x in zip(("init_base.R", "init_base.t"), getattr(engine, "init_base", ())):
         out.append((name, x, x._version))
     return out
 
 
 def assert_no_donation(snapshot):
     """Raise AssertionError if any tensor of `snapshot_versions(...)` was
-    written in place since: the loop layer's digest and the keyframe
-    snapshots read old map tensors after the programs that replaced them
-    ran."""
+    written in place since: a record of an earlier frame that aliases the
+    engine's state reads the state's later values."""
     written = [name for name, x, version in snapshot if x._version != version]
     assert not written, (
-        f"in-place writes into snapshot tensors {written}: engine programs "
-        "must return new map tensors, not update the old ones"
+        f"in-place writes into snapshot tensors {written}: what the engine "
+        "keeps of an earlier frame must be a copy of its state, not the state"
     )
 
 
