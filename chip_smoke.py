@@ -47,7 +47,9 @@ raises and exits non-zero:
      60 warmup frames, frames 60-499 timed on the host clock, then
      join(). 500 finite poses, no hook errors, at least one loop, ATE
      (no scale alignment) below 0.15 m, and K1 launched during the run;
-     the loop funnel (`tools/diag_loops.Funnel`: keyframes, queries,
+     the pose-graph solves (accepted of run) and their ms each on the
+     worker; the programs captured and the bytes of their CUDA graphs'
+     memory pools; the loop funnel (`tools/diag_loops.Funnel`: keyframes, queries,
      eligible, matches, 3-D, PnP inliers, drift gate, loops) printed, each
      stage at most the one before and the last the run's loops;
   7. MonocularVO at the reference's mono configuration (`bench.py:
@@ -75,7 +77,8 @@ raises and exits non-zero:
      median per frame), the join time, keyframes, nodes, re-inits, each
      loop (from, to, inliers, s_rel, and the ratio ground truth implies),
      the range of node scales, the pose-graph solves (accepted of run) and
-     their mean time on the worker, the scale-aligned keyframe ATE after
+     their ms each on the worker, the programs captured and their graph
+     pools' bytes, the scale-aligned keyframe ATE after
      the Sim(3) correction and raw, K1 launches by call site; then each
      loop detection again on the card from the run's inputs and
      hypotheses, its PnP pose's inliers and Umeyama fit again on the CPU,
@@ -99,9 +102,11 @@ raises and exits non-zero:
      single-device solve and every rank equal, the same numbers labelled
      "ranks sharing one card" (not a scaling number); (c) the mesh
      dryrun's StereoSLAM (`__graft_entry__.py` `dryrun_multichip`: 240x320,
-     C=8, L=2048, 10 frames) with distribute_ba on the NCCL group, under
-     the dryrun's assertions and within 1e-5 m of the same run without
-     distribute_ba, K1 launched; (d) `multiprocess_ba --engine`'s StereoVO
+     C=8, L=2048, 10 frames) with distribute_ba on the NCCL group (its
+     window BA the captured `ba_prep` and `ba_finish` programs around the
+     eager sharded solver, each replayed once a BA), under the dryrun's
+     assertions and within 1e-5 m of the same run without distribute_ba,
+     K1 launched; (d) `multiprocess_ba --engine`'s StereoVO
      over 2 gloo ranks on the card, each within 0.05 m of its single-rank
      run, ATEs below 0.08 m, ranks equal, K1 launched;
  11. the stats-delay scenario and the diagnostic and profiling tools
@@ -134,7 +139,22 @@ raises and exits non-zero:
      previous call's; a tracked frame and a keyframe frame with its window
      BA under `torch.cuda.set_sync_debug_mode("error")`; each program's
      host enqueue ms, device ms and kernels, replayed and eager;
- 13. one JSON line with the kernel records (`launches`: the kernel's
+ 13. the SLAM loop layer's programs (`slam/programs.Cache`): StereoSLAM
+     on phase 6's cell and MonoSLAM on phase 9's, each until every
+     detection segment has had 2 + REPLAY_CHECKS calls, then as many
+     solves of the run's last graph (its node estimates moved by seeded
+     noise) through the program of its bucket on the worker: the calls 3
+     to 2 + REPLAY_CHECKS of the keyframe digest and of each detection
+     segment (the graphs between the draw, `eigh` and `svd`), and the
+     first REPLAY_CHECKS of those solves that replay, held against an
+     eager call of the bare function on the same
+     inputs, bit for bit (the solves, whose scatter-adds use atomics,
+     within LOOP_SOLVE_TOL), with new outputs at new inputs and the
+     digest's K1 launches; a keyframe hook's digest on the dispatch
+     thread and a solve on the worker under
+     `set_sync_debug_mode("error")`; each program's host enqueue ms,
+     device ms and kernels, replayed and eager; the graph pools' bytes;
+ 14. one JSON line with the kernel records (`launches`: the kernel's
      launches summed over the main paths it is on, each counted from 0
      just before its path and read just after; the times: K1 summed over
      a tracked frame's 6 calls, K2 over the tool's 12), then the last
@@ -151,6 +171,7 @@ import io
 import json
 import os
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -252,6 +273,15 @@ PROFILE_REPS = 1
 REPLAY_CHECKS = 3
 PROGRAM_MONO_FRAMES = 160
 PROGRAM_TIME_REPS = 3
+# Phase 13: a replayed pose-graph solve against an eager one, largest
+# absolute gap over every float output (poses, scales, costs): the solves
+# scatter-add with atomics (`index_add_`), so two eager solves need not
+# agree bit for bit either, and an accept test that flips on a last-bit
+# cost gap moves the rest of the LM run. Phase 9's bound for the same
+# solve on the card against the CPU (MONO_SLAM_SOLVE_TOL); on an H100 the
+# stereo cell's graphs read gaps of 0 to 2.5e-4, and two eager solves on
+# the same inputs up to 1.5e-4 (PERF.md).
+LOOP_SOLVE_TOL = 1e-3
 # The timings summed over a tracked frame's calls (K1) or the tool's sweep (K2).
 FRAME_KEYS = ("device_ms", "host_ms", "floor_ms", "bound_ms", "library_ms", "plain_ms",
               "entry_ms")
@@ -507,6 +537,59 @@ def render_orbit(synthetic):
     return frames, Rs, ts
 
 
+class SolveTimer:
+    """The pose-graph solves of a SLAM run on its worker thread: their
+    host time (each ends in the copy of its result to the host), what
+    each was (the eager first call at its bucket, the capture, or a
+    replay) and the ones the health gate accepts (each stores its
+    solution)."""
+
+    def __init__(self, slam):
+        self.times, self.kinds, self.accepted = [], [], []
+        real_solve, real_store = slam._solve, slam._store_solution
+
+        def state():
+            progs = [p for k, p in slam._loop_programs.programs.items()
+                     if k[0].startswith("pose_graph")]
+            return len(progs), sum(p.graph is not None for p in progs)
+
+        def timed_solve(*a):
+            before = state()
+            t = time.perf_counter()
+            out = real_solve(*a)
+            self.times.append(time.perf_counter() - t)
+            after = state()
+            self.kinds.append("eager" if after[0] > before[0]
+                              else "capture" if after[1] > before[1] else "replay")
+            return out
+
+        def counted_store(*a):
+            self.accepted.append(len(self.times))
+            return real_store(*a)
+
+        slam._solve, slam._store_solution = timed_solve, counted_store
+
+    def line(self, label, card):
+        ms = [1e3 * t for t in self.times]
+        shown = ", ".join(f"{k} {v:.3f}" for k, v in zip(self.kinds, ms))
+        mean = float(np.mean(ms)) if ms else float("nan")
+        return (f"{label}: {len(ms)} pose-graph solves ({len(self.accepted)} accepted), mean "
+                f"{mean:.3f} ms per solve (worker thread, host clock; each: {shown}) [{card}]")
+
+
+def graph_pools(torch, slam):
+    """How many of the engine's programs are captured, how many there are,
+    and the bytes their CUDA graphs' private memory pools hold, reserved
+    and allocated (`torch.cuda.memory_snapshot`: the segments of those
+    pools)."""
+    progs = list(slam._loop_programs.programs.values()) + list(slam._kernels.values())
+    pools = {tuple(p.graph.pool()) for p in progs if p.graph is not None}
+    segs = [s for s in torch.cuda.memory_snapshot()
+            if tuple(s.get("segment_pool_id", (0, 0))) in pools]
+    return (len(pools), len(progs), sum(s["total_size"] for s in segs),
+            sum(s["allocated_size"] for s in segs))
+
+
 def slam_phase(torch, extract, extract_aligned, frames, Rs, ts, metrics, dev, card):
     """Phase 6. StereoSLAM on the reference's 500-frame loop cell (the
     configuration of `tools/diag_loops.stereo_config`) with the loop funnel
@@ -519,6 +602,7 @@ def slam_phase(torch, extract, extract_aligned, frames, Rs, ts, metrics, dev, ca
     extract_aligned.launch.launches = 0
     slam = StereoSLAM(diag_loops.stereo_config(), LoopParams(min_inliers=40, max_correction_m=4.0),
                       device=dev)
+    solves = SolveTimer(slam)
     funnel = diag_loops.Funnel(slam)
     try:
         nxt = slam.to_device(*frames[0])
@@ -547,6 +631,7 @@ def slam_phase(torch, extract, extract_aligned, frames, Rs, ts, metrics, dev, ca
         loops = list(slam.loops)
         errors = list(slam.hook_errors)
         counts = funnel.counts()
+        pools = graph_pools(torch, slam)
     finally:
         slam.close()
     n_timed = SLAM_FRAMES - SLAM_WARMUP
@@ -554,6 +639,9 @@ def slam_phase(torch, extract, extract_aligned, frames, Rs, ts, metrics, dev, ca
     print(f"StereoSLAM 500-frame loop cell: {n_timed / elapsed:.3f} frames/s mean, "
           f"{1.0 / med:.3f} frames/s median per frame ({1e3 * med:.3f} ms) over {n_timed} "
           f"frames after {SLAM_WARMUP} warmup; join {join_s:.2f} s [{card}]")
+    print(solves.line("StereoSLAM", card))
+    print(f"StereoSLAM programs: {pools[0]} of {pools[1]} captured; CUDA graph pools "
+          f"{pools[2]} bytes reserved, {pools[3]} allocated [{card}]")
     print(f"StereoSLAM: {n_kf} keyframes, {nodes} pose-graph nodes, {len(loops)} loops "
           f"closed {[(lp['from'], lp['to'], lp['inliers']) for lp in loops]}")
     if len(R_est) != SLAM_FRAMES or not (np.isfinite(R_est).all() and np.isfinite(t_est).all()):
@@ -850,23 +938,7 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
     sites = K1Sites(torch, extract)
     with sites:
         slam = MonoSLAM(mono_cell.slam_config(), mono_cell.slam_loop_params(), device=dev)
-    # The pose-graph solves on the worker thread: their count and host time
-    # (each ends in the copy of its result to the host), and the solves the
-    # health gate accepts (each stores its solution).
-    solve_s, accepted = [], []
-    real_solve, real_store = slam._solve, slam._store_solution
-
-    def timed_solve(*a):
-        t = time.perf_counter()
-        out = real_solve(*a)
-        solve_s.append(time.perf_counter() - t)
-        return out
-
-    def counted_store(*a):
-        accepted.append(len(solve_s))
-        return real_store(*a)
-
-    slam._solve, slam._store_solution = timed_solve, counted_store
+    solves = SolveTimer(slam)
     recorder = LoopRecorder(torch, slam)
     funnel = diag_loops.Funnel(slam)
     try:
@@ -904,6 +976,7 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
             replays.append((rec, p_dev, recorder.hold_on_cpu(torch, rec, p_dev),
                             recorder.replay(rec, "cpu")))
         (s_dev, c_dev), (s_cpu, c_cpu) = (sim3_solve_on(torch, slam, d) for d in (dev, "cpu"))
+        pools = graph_pools(torch, slam)
     finally:
         recorder.close()
         slam.close()
@@ -916,9 +989,9 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
           f"{len(loops)} loops closed "
           f"{[(lp['from'], lp['to'], lp['inliers'], round(lp['s_rel'], 4)) for lp in loops]}; "
           f"node scales {min(scales):.4f}-{max(scales):.4f}")
-    mean_solve = 1e3 * float(np.mean(solve_s)) if solve_s else float("nan")
-    print(f"MonoSLAM: {len(solve_s)} pose-graph solves ({len(accepted)} accepted), mean "
-          f"{mean_solve:.3f} ms per solve (worker thread, host clock) [{card}]")
+    print(solves.line("MonoSLAM", card))
+    print(f"MonoSLAM programs: {pools[0]} of {pools[1]} captured; CUDA graph pools "
+          f"{pools[2]} bytes reserved, {pools[3]} allocated [{card}]")
     print(f"MonoSLAM scale-aligned keyframe ATE: {ate:.6f} m after the Sim(3) correction "
           f"(limit {MONO_SLAM_ATE_LIMIT_M} m), {ate_raw:.6f} m raw; loops' s_rel from ground "
           f"truth {[round(g, 4) for g in s_gt]}")
@@ -960,8 +1033,8 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
     if not (ate < ate_raw + MONO_SLAM_OVER_RAW_M and ate < MONO_SLAM_ATE_LIMIT_M):
         raise AssertionError(f"mono SLAM ATE {ate:.4f} m over the raw ATE {ate_raw:.4f} m "
                              f"+ {MONO_SLAM_OVER_RAW_M} m or over {MONO_SLAM_ATE_LIMIT_M} m")
-    if not accepted:
-        raise AssertionError(f"no pose-graph solve accepted ({len(solve_s)} run)")
+    if not solves.accepted:
+        raise AssertionError(f"no pose-graph solve accepted ({len(solves.times)} run)")
     if move < need:
         raise AssertionError(f"node scales reach |log s| {move:.4f}, below {need:.4f}")
     if near < MONO_SLAM_TRUTH_SHARE * len(loops):
@@ -1295,6 +1368,8 @@ def dist_phase(torch, extract, dev, card):
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 launches_c = extract.launch.launches
+                progs = {n: vo._kernels.get(n) for n in ("ba", "ba_prep", "ba_finish")}
+                replays = {n: p.replays for n, p in progs.items() if p is not None}
                 t_fin = vo.t.cpu().numpy()
                 R_est, t_est = vo.trajectory()
                 centres[distribute] = metrics.camera_centers(R_est, t_est)
@@ -1306,7 +1381,12 @@ def dist_phase(torch, extract, dev, card):
                 print(f"(c) dryrun StereoSLAM distribute_ba={distribute}: {len(frames)} frames "
                       f"in {wall:.2f} s, {nodes} nodes, {kfs} keyframes, {len(ba_calls)} window "
                       f"BAs (on the NCCL group: {on_group}), ATE {ate:.6f} m, K1 launches "
-                      f"{launches_c} [{card}]")
+                      f"{launches_c}; programs replayed {replays} [{card}]")
+                want = ({"ba_prep": len(ba_calls), "ba_finish": len(ba_calls)} if distribute
+                        else {"ba": len(ba_calls)})
+                if replays != want:
+                    raise AssertionError(f"(c) distribute_ba={distribute}: window BA programs "
+                                         f"replayed {replays}, expected {want}")
                 # __graft_entry__.py dryrun_multichip's assertions.
                 if not (nodes >= 3 and np.isfinite(t_fin).all() and ba_calls and kfs >= 3
                         and abs(float(t_fin[2])) > 0.2 and not errors):
@@ -1523,6 +1603,250 @@ def programs_phase(torch, extract, headline, mono_frames, dev, card):
         print(f"phase 12 {label} wall {time.perf_counter() - t0:.1f} s")
 
 
+class LoopReplayCheck:
+    """Phase 13. Wraps the programs a SLAM engine's loop layer makes
+    (`slam/programs.Cache`, on whichever thread calls them): calls 3 to
+    2 + REPLAY_CHECKS of each (replays of its captured graph: a cached
+    program runs eagerly at its first call and captures at its second),
+    or of a solve the first REPLAY_CHECKS that replay once `check_solves`
+    is set, are each preceded by an eager call of its bare function on
+    the same staged inputs. The digest and the detection's segments are held
+    against it bit for bit (neither accumulates with atomics); a solve
+    within LOOP_SOLVE_TOL, since its scatter-adds (`index_add_`) use
+    atomics, whose order differs from call to call. The digest's K1
+    launches are held against the eager call's, the outputs against the previous checked
+    call's (new inputs give new outputs). Keeps each program's last staged
+    arguments for the timings."""
+
+    def __init__(self, torch, slam, extract):
+        from viso_tpu_torch.slam import programs
+
+        self.torch, self.extract, self.programs = torch, extract, programs
+        self.cache = slam._loop_programs
+        self.real_get = self.cache.get
+        self.rows, self.prev, self.args, self.eager_gaps = [], {}, {}, {}
+        self.check_solves = False
+        self.cache.get = self.get
+
+    @staticmethod
+    def gap(a, b):
+        return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b)
+                   if x.is_floating_point())
+
+    @staticmethod
+    def label(key):
+        return f"{key[0]} {key[1]}x{key[2]}" if key[0].startswith("pose_graph") else key[0]
+
+    def calls(self, name):
+        return max((p.calls for k, p in self.cache.programs.items() if k[0] == name), default=0)
+
+    def get(self, key, fn, **kw):
+        prog = self.real_get(key, fn, **kw)
+        torch, launch, name = self.torch, self.extract.launch, self.label(key)
+
+        def call(*args):
+            self.args[name] = (prog, args)
+            if key[0].startswith("pose_graph"):
+                # The solves driven after the run (`drive_solves`), the
+                # first REPLAY_CHECKS that replay.
+                check = (self.check_solves and prog.calls >= 2
+                         and sum(r["name"] == name for r in self.rows) < REPLAY_CHECKS)
+            else:
+                check = 2 <= prog.calls <= 1 + REPLAY_CHECKS
+            if not check:
+                return prog(*args)
+            prog._stage(args)
+            n0 = launch.launches
+            ref = [x.clone() for x in self.programs.flatten(
+                prog.fn(*self.programs.unflatten(prog.spec, prog.inputs)))[0]]
+            n_eager, n0 = launch.launches - n0, launch.launches
+            out = prog(*args)
+            n_replay = launch.launches - n0
+            if not prog.counted:
+                # A worker's program holds no K1, and the dispatch thread's
+                # launches move the counter meanwhile.
+                n_eager = n_replay = None
+            got = self.programs.flatten(out)[0]
+            if key[0].startswith("pose_graph"):
+                gap = self.gap(got, ref)
+                equal = gap <= LOOP_SOLVE_TOL
+                if name not in self.eager_gaps:
+                    # Two eager solves on the same inputs, for scale.
+                    again = self.programs.flatten(
+                        prog.fn(*self.programs.unflatten(prog.spec, prog.inputs)))[0]
+                    self.eager_gaps[name] = self.gap(again, ref)
+            else:
+                gap = None
+                equal = len(got) == len(ref) and all(bit_equal(torch, a, b)
+                                                     for a, b in zip(got, ref))
+            prev = self.prev.get(name)
+            self.rows.append(dict(
+                name=name, call=prog.calls, graphed=prog.graph is not None,
+                stream=torch.cuda.current_stream(prog.device),
+                worker=threading.current_thread() is not threading.main_thread(),
+                replays=prog.replays, k1_eager=n_eager, k1_replay=n_replay, equal=equal,
+                gap=gap, new=prev is None or not all(bit_equal(torch, a, b)
+                                                     for a, b in zip(got, prev))))
+            self.prev[name] = [x.clone() for x in got]
+            return out
+
+        return call
+
+
+def drive_solves(torch, slam, mono, n):
+    """n solves of the run's last graph through the loop layer's program of
+    its bucket, on the worker's thread and stream, each from the node
+    estimates moved by seeded noise (0.01 rad, 0.01 m), then one more
+    under `set_sync_debug_mode("error")`. Returns the final costs."""
+    from viso_tpu_torch.backend import pose_graph, pose_graph_sim3
+    from viso_tpu_torch.data.synthetic import so3_exp
+
+    def task():
+        rng = np.random.default_rng(0)
+        costs = []
+        with torch.cuda.stream(slam._loop_stream):
+            for k in range(n + 1):
+                R = [so3_exp(rng.normal(0, 0.01, 3)).astype(np.float32) @ r for r in slam.pg_R]
+                t = [v + rng.normal(0, 0.01, 3).astype(np.float32) for v in slam.pg_t]
+                check = k == n
+                if check:
+                    torch.cuda.synchronize()
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    if mono:
+                        _, info = pose_graph_sim3.solve_padded(
+                            slam.pg_s, R, t, slam.pg_edges, pose_graph_sim3.PGParams(iters=25),
+                            device=slam.device, programs=slam._loop_programs)
+                    else:
+                        _, info = pose_graph.solve_padded(
+                            R, t, slam.pg_edges, pose_graph.PGParams(iters=25),
+                            device=slam.device, programs=slam._loop_programs)
+                finally:
+                    if check:
+                        torch.cuda.set_sync_debug_mode(0)
+                costs.append(float(info["final_cost"]))
+        return costs
+
+    return slam._hook_pool.submit(task).result()
+
+
+def sync_error_digest(torch, slam):
+    """The dispatch side of a keyframe hook (the digest program, its
+    copies, the copies to the host) under `set_sync_debug_mode("error")`
+    on the dispatch thread; the hook itself is not enqueued."""
+    pool, hooks = slam._hook_pool, []
+    slam._hook_pool = type("Pool", (), {"submit": lambda self, fn, *a: hooks.append(a)})()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        slam._post_keyframe(slam.kf_order[-1], slam.last_pyr)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        slam._hook_pool = pool
+    torch.cuda.synchronize()
+    if len(hooks) != 1:
+        raise AssertionError("the keyframe hook's dispatch side enqueued no hook")
+
+
+def loop_programs_phase(torch, extract, orbit, dev, card):
+    """Phase 13. The SLAM loop layer's programs: StereoSLAM on phase 6's
+    cell and MonoSLAM on phase 9's, each until every detection segment has
+    had 2 + REPLAY_CHECKS calls (`LoopReplayCheck`), then 2 + REPLAY_CHECKS
+    solves of the run's last graph through the program of its bucket on
+    the worker; a keyframe hook's digest on the dispatch thread and a
+    solve on the worker under `set_sync_debug_mode("error")`; then each
+    program's host, device ms and kernels, replayed and eager."""
+    from viso_tpu_torch.geometry import extract as k1
+    from viso_tpu_torch.slam.full import StereoSLAM
+    from viso_tpu_torch.slam.loop_closure import LoopParams
+    from viso_tpu_torch.slam.mono_full import MonoSLAM
+    from viso_tpu_torch.tools import diag_loops, mono_cell
+    from viso_tpu_torch.utils import profiling
+
+    for label, make, frames, detect, solve in (
+            ("StereoSLAM", lambda: StereoSLAM(diag_loops.stereo_config(),
+                                              LoopParams(min_inliers=40, max_correction_m=4.0),
+                                              device=dev),
+             orbit, ("detect_match", "detect_dlt", "detect_dlt_sign", "detect_pnp"),
+             "pose_graph"),
+            ("MonoSLAM", lambda: MonoSLAM(mono_cell.slam_config(), mono_cell.slam_loop_params(),
+                                          device=dev),
+             [(il,) for il, _ in orbit],
+             ("detect_match", "detect_dlt", "detect_dlt_sign", "detect_pnp_sim3",
+              "detect_umeyama"), "pose_graph_sim3")):
+        t0 = time.perf_counter()
+        slam = make()
+        checker = LoopReplayCheck(torch, slam, extract)
+        try:
+            n = 0
+            for f in frames:
+                slam.process(*f)
+                n += 1
+                if n % 16 == 0 and slam._hook_last is not None:
+                    slam._hook_last.result()    # the worker, caught up
+                    if min(checker.calls(d) for d in detect) >= 2 + REPLAY_CHECKS:
+                        break
+            slam.join()
+            if slam.hook_errors:
+                raise AssertionError(f"{label}: hook errors {slam.hook_errors}")
+            checker.check_solves = True
+            costs = drive_solves(torch, slam, label == "MonoSLAM", 2 + REPLAY_CHECKS)
+            sync_error_digest(torch, slam)
+            rows = checker.rows
+            for r in rows:
+                gap = "" if r["gap"] is None else f" (max gap {r['gap']:.3g})"
+                print(f"{label} {r['name']} call {r['call']} (replay {r['replays']}): equal to "
+                      f"the eager call {r['equal']}{gap}, K1 {r['k1_replay']} replayed / "
+                      f"{r['k1_eager']} eager, new outputs {r['new']} [{card}]")
+            print(f"{label} solves: largest gap between two eager solves on the same "
+                  f"inputs {checker.eager_gaps} [{card}]")
+            names = list(detect) + ["digest"]
+            solved = sorted({r["name"] for r in rows if r["name"].startswith(solve + " ")})
+            short = [x for x in names + solved
+                     if sum(r["name"] == x for r in rows) != REPLAY_CHECKS]
+            # A program replays on its caller's stream: the worker's own on
+            # the worker, the default one on the dispatch thread (the digest,
+            # and join()'s last solve); each thread's captures ran on a
+            # stream of their own, which no eager work uses.
+            bad = [r for r in rows if not (
+                r["graphed"] and r["equal"] and r["new"] and r["k1_replay"] == r["k1_eager"]
+                and r["stream"] == (slam._loop_stream if r["worker"]
+                                    else torch.cuda.current_stream(dev)))]
+            capture_streams = set(slam._loop_programs._streams.values())
+            if (len(capture_streams) != 2 or slam._loop_stream in capture_streams
+                    or torch.cuda.current_stream(dev) in capture_streams):
+                bad.append(dict(capture_streams=capture_streams))
+            if short or bad or not solved or not all(np.isfinite(costs)):
+                raise AssertionError(f"{label}: programs without {REPLAY_CHECKS} checked "
+                                     f"replays {short}, failing {bad}, solves {solved}, "
+                                     f"costs {costs}")
+            print(f"{label}: {n} frames; a keyframe hook's digest on the dispatch thread and "
+                  f"a solve on the worker ({solved[-1]}) under set_sync_debug_mode('error'): "
+                  f"no synchronising call [{card}]")
+            for name in names + solved[-1:]:
+                prog, args = checker.args[name]
+
+                def staged(prog=prog):
+                    return prog.fn(*checker.programs.unflatten(prog.spec, prog.inputs))
+
+                reps = 1 if name.startswith("pose_graph") else PROGRAM_TIME_REPS
+                for kind, fn in (("replay", lambda: prog(*args)), ("eager", staged)):
+                    r = profiling.profile_stage(f"{name} {kind}", fn, reps=reps,
+                                                counter=lambda: k1.launch.launches)
+                    print(f"{label} program {r['name']}: host {r['host_ms']:.3f} ms, device "
+                          f"{r['device_ms']:.3f} ms, {r['kernels']} kernels ({r['tries']} "
+                          f"profiler windows), stream {r['stream_ms']:.3f} ms, {r['launches']} "
+                          f"K1 [{card}]")
+                    if not (r["device_ms"] > 0 and r["kernels"] > 0):
+                        raise AssertionError(f"{label} {r['name']}: no device time: {r}")
+            pools = graph_pools(torch, slam)
+            print(f"{label} programs: {pools[0]} of {pools[1]} captured; CUDA graph pools "
+                  f"{pools[2]} bytes reserved, {pools[3]} allocated [{card}]")
+        finally:
+            slam.close()
+        print(f"phase 13 {label} wall {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     # The run uses one card: show torch only the first visible one, so the
     # device count in the last line is the number of cards the run used.
@@ -1709,7 +2033,12 @@ def main() -> int:
     programs_phase(torch, extract, frames, mono_frames, dev, card)
     print(f"phase 12 wall {time.perf_counter() - t0:.1f} s")
 
-    # Phase 13: results.
+    # Phase 13: the SLAM loop layer's captured programs.
+    t0 = time.perf_counter()
+    loop_programs_phase(torch, extract, orbit, dev, card)
+    print(f"phase 13 wall {time.perf_counter() - t0:.1f} s")
+
+    # Phase 14: results.
     print(f"total wall {time.perf_counter() - t_start:.1f} s")
     # ms, plain_ms, bound_ms, library_ms: device times (CUDA graph replay),
     # K1 summed over a tracked frame's 6 calls, K2 over the tool's 12 calls.

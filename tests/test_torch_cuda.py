@@ -427,3 +427,190 @@ def test_program_replays_equal_eager_calls_on_cuda(cuda_device, mono, name):
     finally:
         vo.close()
     assert checked == [True] * 3
+
+
+# The SLAM loop layer's programs (slam/programs.Cache): each captured at
+# its second call and replayed after.
+LOOP_NF, LOOP_CAPACITY = 256, 64
+# A replayed solve against an eager one: the solves scatter-add with
+# atomics (`index_add_`), whose order differs from call to call, so two
+# eager solves need not agree bit for bit either; 1e-4 is the tolerance
+# the port's solves keep against the JAX package's.
+SOLVE_REPLAY_ATOL = 1e-4
+
+
+def _loop_scene(device, seed=5, sim3=False):
+    """A loop database of LOOP_CAPACITY stored keyframes (identity poses)
+    and a query that sees entry 2 from a moved camera, 10 % of its bits
+    flipped and a fifth of its keypoints outliers (tests/test_torch_slam.py's
+    scene at the digest's width)."""
+    from viso_tpu_torch.data.synthetic import so3_exp
+    from viso_tpu_torch.slam.loop_closure import LoopDatabase, LoopParams
+
+    rng = np.random.default_rng(seed)
+    nf = LOOP_NF
+    db = LoopDatabase(LoopParams(capacity=LOOP_CAPACITY, num_features=nf, guard=1,
+                                 min_matches=20, min_inliers=15), seed=1, device=device)
+    entries = []
+    for k in range(LOOP_CAPACITY):
+        kps = rng.uniform(0, 200, (nf, 2)).astype(np.float32)
+        desc = np.where(rng.uniform(size=(nf, 256)) < 0.5, -1.0, 1.0).astype(np.float32)
+        pts = np.stack([rng.uniform(-2, 2, nf), rng.uniform(-1, 1, nf),
+                        rng.uniform(3, 7, nf)], -1).astype(np.float32)
+        mask = np.ones(nf, bool)
+        entries.append((pts, desc))
+        db.add(None, kps, mask, pts, mask, np.eye(3, dtype=np.float32), np.zeros(3, np.float32),
+               k, desc=torch.from_numpy(desc).bfloat16().to(device))
+    pts, desc = entries[2]
+    Rq, tq = so3_exp([0.02, -0.05, 0.01]), np.array([0.1, -0.05, 0.2], np.float32)
+    pc = pts @ Rq.T + tq
+    kps_q = np.stack([180.0 * pc[:, 0] / pc[:, 2] + 111.5, 180.0 * pc[:, 1] / pc[:, 2] + 79.5],
+                     -1).astype(np.float32)
+    kps_q[::5] = rng.uniform(0, 200, (len(kps_q[::5]), 2))
+    desc_q = desc.copy()
+    desc_q[rng.uniform(size=desc.shape) < 0.1] *= -1
+    perm = rng.permutation(nf)
+    query = [torch.from_numpy(desc_q[perm]).bfloat16(), torch.ones(nf, dtype=torch.bool),
+             torch.from_numpy(kps_q[perm])]
+    if sim3:
+        query += [torch.from_numpy(1.5 * pts[perm]), torch.from_numpy(rng.uniform(size=nf) > 0.1),
+                  torch.from_numpy(Rq.astype(np.float32)), torch.from_numpy(1.5 * tq)]
+    return db, [x.to(device) for x in query]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sim3", [False, True])
+def test_detection_segments_replay_equal_eager_calls_on_cuda(cuda_device, sim3):
+    """Four detections through the database's programs (the first eager,
+    the second captures every segment): each packed result bit-equal to
+    the eager function's with the draws of a second database at the same
+    seed, the generators in the same state after them."""
+    from viso_tpu_torch.geometry import camera
+    from viso_tpu_torch.ops import pnp
+    from viso_tpu_torch.slam import loop_closure as lc
+
+    db, query = _loop_scene(cuda_device, sim3=sim3)
+    ref, _ = _loop_scene(cuda_device, sim3=sim3)
+    intr = camera.Intrinsics.create(180.0, 180.0, 111.5, 79.5)
+    thresh = (db.params.pnp_threshold_px / intr.fx) ** 2
+    kernel = lc._detect_fused_sim3_kernel if sim3 else lc._detect_fused_kernel
+    for call in range(4):
+        got = db._detect_packed(query, intr)
+        eligible = torch.from_numpy(db._eligible()).to(cuda_device)
+        want = kernel(*query, ref.desc, ref.desc_mask, ref.points_w_dev, ref.points_ok_dev,
+                      eligible, intr, thresh, 20, 15,
+                      lambda m: pnp.draw_hypotheses(ref.generator, m)).cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+        assert got[1] == 2 and got[3] >= 40
+    progs = db.programs.programs.values()
+    assert len(progs) == (5 if sim3 else 4)
+    assert all(p.graph is not None and p.replays == 3 for p in progs)
+    assert torch.equal(db.generator.get_state(), ref.generator.get_state())
+
+
+def _solve_case(K, sim3, seed):
+    """A drifted ring of K nodes with two loop edges (numpy): the node
+    estimates (with scales for Sim(3)) and the edges."""
+    from viso_tpu_torch.data.synthetic import so3_exp
+
+    rng = np.random.default_rng(seed)
+    Rs, ts = [], []
+    for k in range(K):
+        ang = 2 * np.pi * k / K
+        R = so3_exp([0.0, ang, 0.0]).T.astype(np.float32)
+        Rs.append(R)
+        ts.append((-R @ np.array([2 * np.sin(ang), 0.0, -2 * np.cos(ang)])).astype(np.float32))
+    edges = []
+    for i, j in [(k - 1, k) for k in range(1, K)] + [(0, K - 1), (1, K - 2)]:
+        Rm = Rs[i] @ Rs[j].T
+        tm = ts[i] - Rm @ ts[j]
+        if j == i + 1:
+            Rm, tm = so3_exp(rng.normal(0, 0.01, 3)) @ Rm, tm + rng.normal(0, 0.02, 3)
+        e = (i, j, Rm.astype(np.float32), tm.astype(np.float32), 1.0 if j == i + 1 else 2.0)
+        edges.append(e[:2] + (1.0,) + e[2:] if sim3 else e)
+    R0 = [so3_exp(rng.normal(0, 0.05, 3)).astype(np.float32) @ R for R in Rs]
+    t0 = [t + rng.normal(0, 0.1, 3).astype(np.float32) for t in ts]
+    return ([1.0] * K, R0, t0, edges) if sim3 else (R0, t0, edges)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, sim3", [(40, False), (60, True), (400, False)])
+def test_solve_programs_replay_within_tolerance_of_eager_on_cuda(cuda_device, K, sim3):
+    """Four graphs at one bucket through the loop layer's solve program
+    (the first eager, captured at the second): each within
+    SOLVE_REPLAY_ATOL of an eager solve of its graph, the fourth replay
+    under set_sync_debug_mode("error"). 400 nodes go to the 512-node PCG
+    bucket."""
+    from viso_tpu_torch.backend import pose_graph as pg
+    from viso_tpu_torch.backend import pose_graph_sim3 as pgs
+    from viso_tpu_torch.slam import programs
+
+    mod = pgs if sim3 else pg
+    params = mod.PGParams(iters=25)
+    cache = programs.Cache(cuda_device)
+    stream = torch.cuda.Stream(cuda_device)
+    for seed in range(4):
+        case = _solve_case(K, sim3, seed)
+        with torch.cuda.stream(stream):
+            if seed == 3:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out, info = mod.solve_padded(*case, params, device=cuda_device, programs=cache)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            got = [getattr(out, k)[:K].cpu() for k in (("s", "R", "t") if sim3 else ("R", "t"))]
+        ref, _ = mod.solve_padded(*case, params, device=cuda_device)
+        for a, k in zip(got, ("s", "R", "t") if sim3 else ("R", "t")):
+            torch.testing.assert_close(a, getattr(ref, k)[:K].cpu(), rtol=0,
+                                       atol=SOLVE_REPLAY_ATOL)
+        assert float(info["final_cost"]) < float(info["initial_cost"])
+    (prog,) = cache.programs.values()
+    assert prog.graph is not None and prog.replays == 3
+    assert prog.inputs[0].shape[0] == (512 if K > 320 else 16 * 2 ** int(np.ceil(np.log2(K / 16))))
+
+
+@pytest.mark.cuda
+def test_digest_program_replays_equal_eager_calls_on_cuda(cuda_device):
+    """The keyframe digest on a StereoSLAM whose map holds seeded images,
+    observations and landmarks (184x616, 256 keypoints): calls 2-4 are
+    replays, each bit-equal to an eager call of the bare function, with
+    the eager call's K1 launch counted at each replay."""
+    from viso_tpu_torch.slam.full import StereoSLAM
+    from viso_tpu_torch.slam.engine import VOConfig
+    from viso_tpu_torch.slam.loop_closure import LoopParams
+
+    H, W = 184, 616
+    cfg = VOConfig(height=H, width=W, max_keyframes=8, max_landmarks=1024, num_features=256,
+                   fx=359.428, fy=359.428, cx=303.596, cy=92.608)
+    slam = StereoSLAM(cfg, LoopParams(), device=cuda_device)
+    rng = np.random.default_rng(4)
+    m = slam.map
+    for lvl in m.kf_pyr:
+        lvl.copy_(torch.from_numpy(rng.uniform(0, 255, lvl.shape).astype(np.float32)))
+    shape = m.obs_mask.shape
+    m.obs_mask.copy_(torch.from_numpy(rng.uniform(size=shape) < 0.3))
+    m.obs_uv.copy_(torch.from_numpy(np.stack([rng.uniform(20, W - 20, shape),
+                                              rng.uniform(20, H - 20, shape)], -1)
+                                    .astype(np.float32)))
+    m.points.copy_(torch.from_numpy(rng.normal(0, 2, m.points.shape).astype(np.float32)))
+    hooks = []
+    slam._hook_pool.shutdown(wait=True)
+    slam._hook_pool = type("Pool", (), {"submit": lambda self, fn, *a: hooks.append(a),
+                                        "shutdown": lambda self, wait: None})()
+    rows = []
+    try:
+        for slot in (0, 3, 5, 7):
+            before = t_ext.launch.launches
+            slam._post_keyframe(slot, None)
+            n_prog = t_ext.launch.launches - before
+            before = t_ext.launch.launches
+            want = slam._digest_program(m, slot)
+            n_eager = t_ext.launch.launches - before
+            rows.append((n_prog, n_eager, all(torch.equal(_bits(a), _bits(b))
+                                              for a, b in zip(hooks[-1][1], want))))
+        prog = slam._loop_programs.programs[("digest",)]
+        assert prog.graph is not None and prog.replays == 3
+    finally:
+        slam.close()
+    assert rows == [(1, 1, True)] * 4, rows

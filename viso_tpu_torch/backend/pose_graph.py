@@ -20,6 +20,7 @@ solvers (`dense_delta`, `pcg_delta`) and the LM loop
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -27,6 +28,7 @@ import torch
 
 from viso_tpu_torch.backend import robust
 from viso_tpu_torch.geometry import se3
+from viso_tpu_torch.slam.programs import host_tensors
 
 
 class PoseGraph(NamedTuple):
@@ -275,13 +277,11 @@ def _bucket(n: int, floor: int = 16) -> int:
     return b
 
 
-def solve_padded(pg_R, pg_t, edges, params: PGParams = PGParams(), *, device):
-    """Solve a growing pose graph padded to power-of-two capacities.
-
-    `pg_R`/`pg_t`: lists or arrays of world->cam poses; `edges`: list of
-    (i, j, R_ij, t_ij, weight). Returns (PoseGraph, info) with padded
-    tensors on `device` -- slice [:len(pg_R)].
-    """
+def pad_graph(pg_R, pg_t, edges, *, device):
+    """A growing pose graph padded to power-of-two capacities, as host
+    tensors ready to stage onto `device` (`host_tensors`). `pg_R` /
+    `pg_t`: lists or arrays of world->cam poses; `edges`: list of (i, j,
+    R_ij, t_ij, weight)."""
     K = len(pg_R)
     E = len(edges)
     Kp = _bucket(K)
@@ -307,16 +307,38 @@ def solve_padded(pg_R, pg_t, edges, params: PGParams = PGParams(), *, device):
         R_ij[k], t_ij[k] = Rm, tm
         w[k] = wt
         edge_mask[k] = True
+    return PoseGraph(*host_tensors((R, t, node_mask, ei, ej, R_ij, t_ij, w, edge_mask), device))
 
-    def dev(a):
-        return torch.from_numpy(a).to(device)
 
-    g = PoseGraph(
-        R=dev(R), t=dev(t), node_mask=dev(node_mask),
-        edge_i=dev(ei), edge_j=dev(ej), R_ij=dev(R_ij), t_ij=dev(t_ij),
-        edge_weight=dev(w), edge_mask=dev(edge_mask),
-    )
-    return solve(g, params)
+def solve_padded(pg_R, pg_t, edges, params: PGParams = PGParams(), *, device, programs=None):
+    """Solve a growing pose graph padded to power-of-two capacities
+    (`pad_graph`). Returns (PoseGraph, info) with padded tensors on
+    `device` -- slice [:len(pg_R)].
+
+    Eager by default (the tools' entry point). With `programs` (a
+    `slam/programs.Cache`, the SLAM loop layer's) the solve is the
+    cache's program of its bucket and params: captured on a CUDA device
+    and replayed, its padded graph staged from pinned host memory; its
+    outputs are overwritten by the bucket's next solve."""
+    g = pad_graph(pg_R, pg_t, edges, device=device)
+    return run_solve(g, params, solve, "pose_graph", device=device, programs=programs)
+
+
+def run_solve(g, params, solve_fn, name, *, device, programs):
+    """`solve_fn(g, params)` on `device`: eagerly, or through the program
+    of (name, node bucket, edge bucket, params) in `programs`."""
+    if programs is None:
+        return solve_fn(type(g)(*(x.to(device) for x in g)), params)
+    key = (name, g.R.shape[0], g.edge_i.shape[0], params)
+    out, cost0, cost1, hist = programs.get(key, functools.partial(_solve_flat, solve_fn,
+                                                                  params=params))(g)
+    return out, {"initial_cost": cost0, "final_cost": cost1, "cost_history": hist}
+
+
+def _solve_flat(solve_fn, g, params):
+    """`solve_fn`'s result as a tuple of tensors (a program returns no dict)."""
+    out, info = solve_fn(g, params)
+    return out, info["initial_cost"], info["final_cost"], info["cost_history"]
 
 
 def solve(graph: PoseGraph, params: PGParams = PGParams()):

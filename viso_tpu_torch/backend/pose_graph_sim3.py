@@ -26,6 +26,7 @@ import torch
 
 from viso_tpu_torch.backend import pose_graph, robust
 from viso_tpu_torch.geometry import sim3
+from viso_tpu_torch.slam.programs import host_tensors
 
 
 class Sim3Graph(NamedTuple):
@@ -66,8 +67,11 @@ def edge_residual(si, Ri, ti, sj, Rj, tj, s_ij, R_ij, t_ij, sw):
     rel = sim3.compose(si, Ri, ti, *sim3.inverse(sj, Rj, tj))
     r = sim3.log_decomposed(*sim3.compose(*sim3.inverse(s_ij, R_ij, t_ij), *rel))
     # A tensor of the residual's dtype: a Python float here would meet the
-    # tangents of forward mode and promote them to float64.
-    weight = torch.tensor([1.0] * 6 + [sw], dtype=r.dtype, device=r.device)
+    # tangents of forward mode and promote them to float64. Made on the
+    # device (`torch.tensor` of a list would copy host data, which a
+    # captured solve cannot).
+    weight = torch.cat([torch.ones(6, dtype=r.dtype, device=r.device),
+                        torch.full((1,), sw, dtype=r.dtype, device=r.device)])
     return r * weight
 
 
@@ -194,11 +198,10 @@ def cold_start_init(pg_s, pg_R, pg_t, edges):
     return out_s, out_R, out_t
 
 
-def solve_padded(pg_s, pg_R, pg_t, edges, params: PGParams = PGParams(), *, device):
-    """Solve a growing Sim(3) graph padded to power-of-two capacities
-    (`pose_graph._bucket`). `edges`: (i, j, s_ij, R_ij, t_ij, weight).
-    Returns (Sim3Graph, info) with padded tensors on `device` -- slice
-    [:len(pg_R)]."""
+def pad_graph(pg_s, pg_R, pg_t, edges, *, device):
+    """A growing Sim(3) graph padded to power-of-two capacities
+    (`pose_graph._bucket`), as host tensors ready to stage onto `device`
+    (`slam/programs.host_tensors`). `edges`: (i, j, s_ij, R_ij, t_ij, weight)."""
     K = len(pg_R)
     E = len(edges)
     Kp = pose_graph._bucket(K)
@@ -227,13 +230,16 @@ def solve_padded(pg_s, pg_R, pg_t, edges, params: PGParams = PGParams(), *, devi
         s_ij[k], R_ij[k], t_ij[k] = sm, Rm, tm
         w[k] = wt
         edge_mask[k] = True
+    return Sim3Graph(*host_tensors(
+        (s, R, t, node_mask, ei, ej, s_ij, R_ij, t_ij, w, edge_mask), device))
 
-    def dev(a):
-        return torch.from_numpy(a).to(device)
 
-    g = Sim3Graph(
-        s=dev(s), R=dev(R), t=dev(t), node_mask=dev(node_mask),
-        edge_i=dev(ei), edge_j=dev(ej), s_ij=dev(s_ij), R_ij=dev(R_ij),
-        t_ij=dev(t_ij), edge_weight=dev(w), edge_mask=dev(edge_mask),
-    )
-    return solve(g, params)
+def solve_padded(pg_s, pg_R, pg_t, edges, params: PGParams = PGParams(), *, device,
+                 programs=None):
+    """Solve a growing Sim(3) graph padded to power-of-two capacities
+    (`pad_graph`). Returns (Sim3Graph, info) with padded tensors on
+    `device` -- slice [:len(pg_R)]. Eager, or with `programs` through the
+    program of its bucket, as `pose_graph.solve_padded`."""
+    g = pad_graph(pg_s, pg_R, pg_t, edges, device=device)
+    return pose_graph.run_solve(g, params, solve, "pose_graph_sim3", device=device,
+                                programs=programs)

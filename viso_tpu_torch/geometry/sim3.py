@@ -63,26 +63,41 @@ def umeyama_masked(src, dst, mask):
     src, dst: (..., N, 3); mask: (..., N) weights in {0, 1}. Returns
     (s (...), R (..., 3, 3), t (..., 3)). Degenerate masks (fewer than
     three points, zero variance) and non-finite fits give the identity
-    similarity. Selected with `torch.where`: no host read."""
+    similarity. Selected with `torch.where`: no host read of its own; on
+    CUDA the SVD checks its status on the host, so the steps around it
+    are functions of their own (`umeyama_moments`, `umeyama_finish`)."""
+    cov, moments = umeyama_moments(src, dst, mask)
+    U, D, Vt = torch.linalg.svd(cov)
+    return umeyama_finish(U, D, Vt, *moments)
+
+
+def umeyama_moments(src, dst, mask):
+    """The fit's cross-covariance (..., 3, 3), the identity where it is
+    not finite (as in the JAX package, whose SVD returns NaN there, the
+    SVD sees a finite matrix), and the moments `umeyama_finish` takes."""
     w = mask.to(src.dtype)
-    n = torch.clamp(torch.sum(w, dim=-1), min=1e-6)
+    w_sum = torch.sum(w, dim=-1)
+    n = torch.clamp(w_sum, min=1e-6)
     mu_s = torch.sum(src * w[..., None], dim=-2) / n[..., None]
     mu_d = torch.sum(dst * w[..., None], dim=-2) / n[..., None]
     src_c = src - mu_s[..., None, :]
     dc = (dst - mu_d[..., None, :]) * w[..., None]
     cov = dc.swapaxes(-1, -2) @ src_c / n[..., None, None]          # (..., 3, 3)
     var_s = torch.sum(src_c * w[..., None] * src_c, dim=(-2, -1)) / n
-    # Non-finite inputs give the identity, as in the JAX package (whose
-    # SVD returns NaN there); the SVD itself sees a finite matrix.
     finite = torch.isfinite(cov).all(dim=-1).all(dim=-1)
     eye = torch.eye(3, dtype=src.dtype, device=src.device)
-    U, D, Vt = torch.linalg.svd(torch.where(finite[..., None, None], cov, eye))
+    return torch.where(finite[..., None, None], cov, eye), (mu_s, mu_d, var_s, w_sum, finite)
+
+
+def umeyama_finish(U, D, Vt, mu_s, mu_d, var_s, w_sum, finite):
+    """(s, R, t) from the SVD of the cross-covariance and the moments."""
+    eye = torch.eye(3, dtype=U.dtype, device=U.device)
     det = torch.linalg.det(U @ Vt)
     d = torch.cat([torch.ones_like(D[..., :2]), det[..., None]], dim=-1)
     R = (U * d[..., None, :]) @ Vt
     s = torch.sum(D * d, dim=-1) / torch.clamp(var_s, min=1e-9)
     t = mu_d - s[..., None] * _mv(R, mu_s)
-    ok = (finite & (torch.sum(w, dim=-1) >= 3.0) & (var_s > 1e-9)
+    ok = (finite & (w_sum >= 3.0) & (var_s > 1e-9)
           & torch.isfinite(s) & (s > 1e-6))
     s = torch.where(ok, s, 1.0)
     R = torch.where(ok[..., None, None], R, eye)

@@ -168,10 +168,12 @@ def compute(img_smooth, kps, mask, oriented: bool = True):
         b_lo = fl.to(torch.int64) % N_ORIENT_BINS
         w_hi = tb - fl
         b_hi = (b_lo + 1) % N_ORIENT_BINS
-        one_hot = torch.nn.functional.one_hot
+        # One-hot rows by comparison: `F.one_hot` reads its input's range
+        # on the host.
+        bins = torch.arange(N_ORIENT_BINS, device=b_lo.device)
         weights = (
-            one_hot(b_lo, N_ORIENT_BINS).to(g.dtype) * (1.0 - w_hi)[:, None]
-            + one_hot(b_hi, N_ORIENT_BINS).to(g.dtype) * w_hi[:, None]
+            (b_lo[:, None] == bins).to(g.dtype) * (1.0 - w_hi)[:, None]
+            + (b_hi[:, None] == bins).to(g.dtype) * w_hi[:, None]
         )
         allv = torch.einsum("nw,bws->nbs", g, consts["oriented"])  # (N, B, 512)
         vals = torch.einsum("nbs,nb->ns", allv, weights)

@@ -23,6 +23,7 @@ import torch
 
 from viso_tpu_torch.backend import robust
 from viso_tpu_torch.geometry import se3
+from viso_tpu_torch.mapping.map_state import row
 from viso_tpu_torch.ops import ransac
 
 
@@ -115,8 +116,20 @@ def _dlt_pnp(points_w, x):
     The null vector of A^T A is taken from `eigh` (ascending eigenvalues,
     as `jnp.linalg.eigh`); its sign is fixed by a vote over the points'
     depths, so the eigenvector's arbitrary sign does not matter. On CUDA,
-    `eigh` and `svd` check their solver status on the host (a sync).
+    `eigh` and `svd` check their solver status on the host (a sync), so
+    the steps around them are functions of their own (`dlt_system`,
+    `dlt_sign`, `dlt_finish`) that a captured detection runs as graphs.
     """
+    AtA, Xh = dlt_system(points_w, x)
+    _, vecs = torch.linalg.eigh(AtA)
+    M, tvec = dlt_sign(vecs, Xh)
+    U, s, Vt = torch.linalg.svd(M)
+    return dlt_finish(U, s, Vt, tvec)
+
+
+def dlt_system(points_w, x):
+    """The DLT's normal matrix A^T A (..., 12, 12) and the homogeneous
+    points (..., k, 4)."""
     ones = torch.ones(points_w.shape[:-1] + (1,), dtype=points_w.dtype,
                       device=points_w.device)
     Xh = torch.cat([points_w, ones], dim=-1)                       # (..., k, 4)
@@ -124,18 +137,24 @@ def _dlt_pnp(points_w, x):
     row_u = torch.cat([Xh, zeros, -x[..., 0:1] * Xh], dim=-1)
     row_v = torch.cat([zeros, Xh, -x[..., 1:2] * Xh], dim=-1)
     A = torch.cat([row_u, row_v], dim=-2)                          # (..., 2k, 12)
-    AtA = A.transpose(-1, -2) @ A
-    _, vecs = torch.linalg.eigh(AtA)
+    return A.transpose(-1, -2) @ A, Xh
+
+
+def dlt_sign(vecs, Xh):
+    """The projection's 3x3 block M and translation from the eigenvectors
+    of A^T A (ascending), signed so that most points lie in front."""
     p = vecs[..., :, 0].reshape(vecs.shape[:-2] + (3, 4))
     M = p[..., :, :3]
-    # Sign: points must be in front (positive depth for the majority).
     depths = torch.einsum("...kc,...c->...k", Xh, p[..., 2, :])
     sign = torch.where(torch.sum(torch.sign(depths), dim=-1) >= 0, 1.0, -1.0)
-    M = M * sign[..., None, None]
-    tvec = p[..., :, 3] * sign[..., None]
-    U, s, Vt = torch.linalg.svd(M)
+    return M * sign[..., None, None], p[..., :, 3] * sign[..., None]
+
+
+def dlt_finish(U, s, Vt, tvec):
+    """(R, t) from the SVD of M: R its nearest rotation, t rescaled by the
+    mean singular value."""
     det = torch.linalg.det(U @ Vt)
-    D = torch.ones(det.shape + (3,), dtype=M.dtype, device=M.device)
+    D = torch.ones(det.shape + (3,), dtype=U.dtype, device=U.device)
     D = torch.cat([D[..., :2], det[..., None]], dim=-1)
     R = U @ (D[..., :, None] * Vt)
     scale = torch.mean(s, dim=-1)
@@ -156,11 +175,18 @@ def pnp_ransac_from_indices(idx, points_w, x, mask, threshold: float = 4e-6,
     refinement over all masked points, kept only if it does not lose
     inliers. `threshold` gates squared normalized reprojection error."""
     Rs, ts = _dlt_pnp(points_w[idx], x[idx])
+    return score_and_refine(Rs, ts, points_w, x, mask, threshold, refine_iters)
+
+
+def score_and_refine(Rs, ts, points_w, x, mask, threshold: float = 4e-6,
+                     refine_iters: int = 10):
+    """The RANSAC step after the hypotheses' poses (H, 3, 3), (H, 3): MSAC
+    scores, the best hypothesis refined, kept if it loses no inliers."""
     res = reprojection_residual(Rs[:, None], ts[:, None], points_w, x)  # (H, N)
     res = torch.where(mask[None, :], res, threshold)
     scores = torch.sum(torch.clamp(res, max=threshold), dim=-1)     # MSAC
     best = torch.argmin(scores)
-    R0, t0 = Rs[best], ts[best]
+    R0, t0 = row(Rs, best), row(ts, best)
     R, t = refine_pose(
         R0, t0, points_w, x, mask.to(points_w.dtype),
         huber=float(np.sqrt(np.float32(threshold))), iters=refine_iters,
@@ -168,7 +194,7 @@ def pnp_ransac_from_indices(idx, points_w, x, mask, threshold: float = 4e-6,
     final = reprojection_residual(R, t, points_w, x)
     inl = (final < threshold) & mask
     # Keep the refined pose only if it did not get worse.
-    inl0 = (res[best] < threshold) & mask
+    inl0 = (row(res, best) < threshold) & mask
     better = torch.sum(inl) >= torch.sum(inl0)
     R = torch.where(better, R, R0)
     t = torch.where(better, t, t0)

@@ -41,13 +41,17 @@ is a copy.
 `BaseVO._post_keyframe` is the keyframe hook of the SLAM layer
 (`slam/full.py`); here it is a no-op.
 
-Distributed window BA (`distribute_ba`, north-star config 5): the ba
-program solves the window landmark-sharded over the `torch.distributed`
-world (`parallel/dist_ba.py`): camera blocks replicated, landmarks and
-their Schur marginalization rank-local, the reduced camera system summed
-with `all_reduce`. Every other program runs replicated on each rank's own
-device. Each rank must make the same keyframe decisions, so a run of more
-than one rank needs `stats_deterministic` or `kf_min_gap == kf_max_gap`.
+Distributed window BA (`distribute_ba`, north-star config 5): the
+window is solved landmark-sharded over the `torch.distributed` world
+(`parallel/dist_ba.py`): camera blocks replicated, landmarks and their
+Schur marginalization rank-local, the reduced camera system summed with
+`all_reduce`. The sharded solver runs eagerly (its collectives cannot be
+captured) between two programs, `ba_prep` (the problem, padded to the
+group) and `ba_finish` (the write-back and the adoption gate), the JAX
+engine's jitted prep and finish. Every other program runs replicated on
+each rank's own device. Each rank must make the same keyframe decisions,
+so a run of more than one rank needs `stats_deterministic` or
+`kf_min_gap == kf_max_gap`.
 """
 
 from __future__ import annotations
@@ -67,6 +71,8 @@ from viso_tpu_torch.slam import programs
 # The engine programs: name -> the method that is the bare function.
 PROGRAMS = {"track": "_track", "templates": "_templates_program", "ba": "_ba_program",
             "stereo_kf": "_stereo_kf_program", "mono_kf": "_mono_kf_program"}
+# A distributed engine's window BA: two programs around the sharded solver.
+DIST_BA_PROGRAMS = {"ba_prep": "_ba_prep_program", "ba_finish": "_ba_finish_program"}
 
 
 @dataclass
@@ -365,12 +371,13 @@ class BaseVO:
         return torch.cat([rho, phi])
 
     def _program(self, name: str) -> programs.Program:
-        """The engine's program `name` (`PROGRAMS`), captured at its first
-        call on a CUDA engine and replayed after."""
+        """The engine's program `name` (`PROGRAMS`, `DIST_BA_PROGRAMS`),
+        captured at its first call on a CUDA engine and replayed after."""
         prog = self._kernels.get(name)
         if prog is None:
-            prog = self._kernels[name] = programs.Program(
-                getattr(self, PROGRAMS[name]), self.device, self._owned)
+            method = PROGRAMS.get(name) or DIST_BA_PROGRAMS[name]
+            prog = self._kernels[name] = programs.Program(getattr(self, method), self.device,
+                                                          self._owned)
         return prog
 
     # -- device programs -----------------------------------------------
@@ -534,29 +541,49 @@ class BaseVO:
             out, info = ba_photometric.solve_impl(
                 prob._replace(cam_fixed=cam_fixed), intr_l, params
             )
+        elif cfg.distribute_ba:
+            out, info = self._dist_ba_solve(self._ba_prep_program(m, cam_fixed))
         else:
-            params = ba.BAParams(
-                iters=cfg.ba_iters,
-                huber=cfg.ba_huber_px / cfg.fx,
-                trunc=cfg.ba_trunc_px / cfg.fx,
-                num_fixed=0,
-            )
             prob = map_state.as_ba_problem(m, self.intr)._replace(cam_fixed=cam_fixed)
-            if cfg.distribute_ba:
-                from viso_tpu_torch.parallel import dist_ba
-
-                mesh = self._mesh()
-                solver = dist_ba.make_sharded_solver(mesh, params)
-                out, info = solver(dist_ba.pad_landmarks(prob, mesh.size))
-                out = out._replace(points=out.points[:cfg.max_landmarks])
-            else:
-                out, info = ba.solve_impl(prob, params)
-        m_new = map_state.update_from_ba(m, out.R, out.t, out.points)
-        m_out, R_out, t_out = self._gate_ba_adoption(
-            m, m_new, map_state.row(out.R, pose_slot), map_state.row(out.t, pose_slot),
-            R0, t0, cfg
-        )
+            out, info = ba.solve_impl(prob, self._reprojection_ba_params())
+        m_out, R_out, t_out = self._ba_finish_program(m, out.R, out.t, out.points, pose_slot,
+                                                      R0, t0)
         return m_out, info["final_cost"], R_out, t_out
+
+    def _reprojection_ba_params(self):
+        cfg = self.cfg
+        return ba.BAParams(
+            iters=cfg.ba_iters,
+            huber=cfg.ba_huber_px / cfg.fx,
+            trunc=cfg.ba_trunc_px / cfg.fx,
+            num_fixed=0,
+        )
+
+    def _ba_prep_program(self, m: map_state.MapState, cam_fixed):
+        """The distributed window BA's problem: the map's, with the cameras
+        `cam_fixed` frozen, its landmarks padded to split evenly over the
+        group (the JAX engine's jitted `prep`)."""
+        from viso_tpu_torch.parallel import dist_ba
+
+        prob = map_state.as_ba_problem(m, self.intr)._replace(cam_fixed=cam_fixed)
+        return dist_ba.pad_landmarks(prob, self._mesh().size)
+
+    def _dist_ba_solve(self, prob):
+        """The landmark-sharded LM over the group, eagerly: its collectives
+        cannot be captured."""
+        from viso_tpu_torch.parallel import dist_ba
+
+        return dist_ba.make_sharded_solver(self._mesh(), self._reprojection_ba_params())(prob)
+
+    def _ba_finish_program(self, m: map_state.MapState, R, t, points, pose_slot: int, R0, t0):
+        """The BA's solution written into the map, gated on the shift of
+        keyframe `pose_slot` (an int or a 0-d tensor) from the tracking
+        pose (R0, t0): (map, R, t). Padding landmarks past the map's are
+        dropped (the JAX engine's jitted `finish`)."""
+        m_new = map_state.update_from_ba(m, R, t, points[:self.cfg.max_landmarks])
+        return self._gate_ba_adoption(
+            m, m_new, map_state.row(R, pose_slot), map_state.row(t, pose_slot), R0, t0, self.cfg
+        )
 
     def _run_window_ba(self, fixed_slots):
         self._ba_backend()
@@ -564,9 +591,16 @@ class BaseVO:
         cam_fixed.zero_()
         for s in fixed_slots:
             cam_fixed[s].fill_(True)   # no host scalar copy (that syncs)
-        # The distributed BA's collectives cannot be captured: it runs eagerly.
-        solve = self._ba_program if self.cfg.distribute_ba else self._program("ba")
-        m, final_cost, R, t = solve(self.map, cam_fixed, self.kf_order[-1], self.R, self.t)
+        if self.cfg.distribute_ba:
+            # The sharded solver's collectives cannot be captured: it runs
+            # eagerly between the captured prep and finish.
+            out, info = self._dist_ba_solve(self._program("ba_prep")(self.map, cam_fixed))
+            m, R, t = self._program("ba_finish")(self.map, out.R, out.t, out.points,
+                                                 self.kf_order[-1], self.R, self.t)
+            final_cost = info["final_cost"]
+        else:
+            m, final_cost, R, t = self._program("ba")(self.map, cam_fixed, self.kf_order[-1],
+                                                      self.R, self.t)
         # Carry BA's pose correction onto prev_* so rel(T, prev) -- the
         # constant-velocity estimate -- is unchanged.
         Gi = se3.compose(*se3.inverse(self.R, self.t), R, t)

@@ -11,8 +11,8 @@ keyframe path).
 
 The keyframe hook runs on one background worker thread. The dispatch
 thread only computes the keyframe's digest (loop keypoints, their
-descriptors and landmarks: one function of tensor ops on the device),
-starts non-blocking copies of what the worker reads on the host into
+descriptors and landmarks: one program on the device), starts
+non-blocking copies of what the worker reads on the host into
 pinned memory, records a CUDA event after them and enqueues. The worker
 waits on that event before it reads a byte: a non-blocking copy has not
 landed when `.to("cpu", non_blocking=True)` returns. On a CUDA engine the
@@ -25,6 +25,15 @@ assigned at enqueue time, so frame -> node anchoring stays exact;
 Worker failures are recorded in `hook_errors`, not raised (a failed hook
 leaves a placeholder node so later ids stay dense), as the JAX package
 does; callers that must not pass over a failure check `hook_errors`.
+
+The loop layer's device work runs as programs of its own cache
+(`slam/programs.Cache`, keyed by name and static shape like the JAX jit
+cache): the digest (on the dispatch thread), loop detection's segments
+and the pose-graph solve of each power-of-two bucket (on the worker,
+replayed on the worker's stream). On a CUDA engine each is a CUDA graph
+from its second call on, captured on a stream the cache keeps for the
+calling thread; on the CPU each runs eagerly through the same static
+buffers.
 
 `LoopLayer` holds what stereo and monocular SLAM (`slam/mono_full.py`)
 share: the node and edge bookkeeping, the hook's two sides, the throttle,
@@ -46,7 +55,9 @@ import numpy as np
 import torch
 
 from viso_tpu_torch.backend import pose_graph
+from viso_tpu_torch.mapping import map_state
 from viso_tpu_torch.ops import descriptors
+from viso_tpu_torch.slam import programs
 from viso_tpu_torch.slam.engine import HostFetch, StereoVO, VOConfig, _pull_poses
 from viso_tpu_torch.slam.loop_closure import LoopDatabase, LoopParams
 
@@ -62,14 +73,15 @@ def make_digest_kernel(num_features: int):
     """The keyframe digest: the loop layer's keypoint set (observed
     landmarks first, ascending slot order) and its steered BRIEF
     descriptors from the keyframe image. A function of tensor ops (K1
-    copies the descriptor windows on CUDA), not a kernel of its own."""
+    copies the descriptor windows on CUDA), not a kernel of its own;
+    `slot` is an int or a 0-d tensor."""
     NF = num_features
 
     def digest(m, slot: int, img0):
-        obs = m.obs_mask[slot]
+        obs = map_state.row(m.obs_mask, slot)
         order = torch.argsort(-obs.to(torch.int32), stable=True)[:NF]
         kp_mask = obs[order]
-        kps = m.obs_uv[slot][order]
+        kps = map_state.row(m.obs_uv, slot)[order]
         pts = m.points[order]
         desc = descriptors.compute(img0, kps, kp_mask)
         return kps, kp_mask, desc, pts
@@ -92,8 +104,11 @@ class LoopLayer:
 
     def _init_loop_layer(self, loop_params: LoopParams | None):
         self.loop_params = loop_params or LoopParams()
+        # The loop layer's programs; the engine state and the database's
+        # tensors are read where they lie.
+        self._loop_programs = programs.Cache(self.device, self._owned)
         self.loop_db = LoopDatabase(self.loop_params, seed=self.cfg.seed + 1,
-                                    device=self.device)
+                                    device=self.device, programs=self._loop_programs)
         self._digest = make_digest_kernel(self.loop_params.num_features)
         # Pose graph over all keyframes. pg_raw_*: immutable odometry
         # poses at node creation (the frame every edge is measured in).
@@ -228,12 +243,22 @@ class LoopLayer:
             self._seam_rot += 2.0 * (rr if rr else 0.1) * span
         # (kps, kp_mask, desc, pts) on the device; the pose and the
         # keypoints, their mask and landmarks on their way to the host.
-        digest = self._digest(self.map, slot, pyr[0])
+        # The program's outputs are overwritten by its next call, before
+        # the worker may have read them: the hook gets copies.
+        digest = self._loop_programs.get(("digest",), self._digest_program, counted=True)(
+            self.map, slot)
+        digest = tuple(x.clone() for x in digest)
         host = HostFetch(self.R, self.t, digest[0], digest[1], digest[3])
         self._hook_last = self._hook_pool.submit(
             self._hook_task, node_id, digest, host, frame_idx, tracked, recovery,
             self._seam_trans, self._seam_rot,
         )
+
+    def _digest_program(self, m, slot):
+        """The digest of keyframe `slot` from its level-0 image where the
+        insertion stored it (`pyr[0]` of the hook): every keyframe's image
+        is read in place, whichever pyramid it came from."""
+        return self._digest(m, slot, map_state.row(m.kf_pyr[0], slot))
 
     def _hook_task(self, node_id, digest, host, frame_idx, tracked, recovery_frame,
                    seam_t=0.0, seam_r=0.0):
@@ -437,6 +462,6 @@ class StereoSLAM(LoopLayer, StereoVO):
                   f"resid={rn[w]:.3f} median={np.median(rn):.4f}", file=sys.stderr)
         out, info = pose_graph.solve_padded(
             self.pg_R, self.pg_t, self.pg_edges, pose_graph.PGParams(iters=25),
-            device=self.device,
+            device=self.device, programs=self._loop_programs,
         )
         return np.ones(K, np.float32), out.R[:K].cpu().numpy(), out.t[:K].cpu().numpy(), info

@@ -12,11 +12,17 @@
   4. A host-side gate bounds the implied correction by the drift accrued
      since the candidate was stored; a verified edge joins the pose graph.
 
-Steps 2-3 are one device function (`_detect_fused_kernel`, a plain
-function of tensor ops, not a kernel) returning a 16-float packed vector
-that the caller copies to the host once. The JAX package skips PnP under
-`lax.cond` when the match gates fail; eager torch cannot branch on a
-device value without a sync, so here PnP always runs and its result is
+Steps 2-3 are one device pass (`_detect`) returning a 16-float packed
+vector that the caller copies to the host once. The JAX package jits it
+as one program; here it runs as a few (`slam/programs.Cache`: captured
+as CUDA graphs on a CUDA database and replayed), one per segment between
+the calls that read the device on the host: the hypotheses' draw from
+the database's generator, and the PnP DLT's `eigh` and `svd` (and the
+Umeyama fit's `svd`), which check their solver status on the host on
+CUDA and run eagerly between the replays, so the arithmetic is the
+eager function's (`_detect_fused_kernel`) bit for bit. The JAX package
+skips PnP under `lax.cond` when the match gates fail; a graph cannot
+branch on a device value, so here PnP always runs and its result is
 selected with `torch.where` (the packed vector is the same).
 
 Hypotheses for RANSAC come from the database's `torch.Generator`, by the
@@ -41,7 +47,9 @@ import torch
 
 from viso_tpu_torch.geometry import camera as cam_mod
 from viso_tpu_torch.geometry import se3, sim3
+from viso_tpu_torch.mapping.map_state import row
 from viso_tpu_torch.ops import descriptors, pnp
+from viso_tpu_torch.slam import programs as prog_mod
 
 # VISO_LOOP_DEBUG=1 prints every candidate's gate record to stderr.
 _DEBUG_ENV = os.environ.get("VISO_LOOP_DEBUG") == "1"
@@ -120,7 +128,7 @@ class LoopDatabase:
     in place; the host mirrors are numpy.
     """
 
-    def __init__(self, params: LoopParams, seed: int = 0, *, device):
+    def __init__(self, params: LoopParams, seed: int = 0, *, device, programs=None):
         p = params
         self.params = p
         self.device = torch.device(device)
@@ -159,6 +167,11 @@ class LoopDatabase:
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
         self._evict_rng = np.random.default_rng(seed + 0x5EED)
+        # Detection's programs (the owner's cache, shared with its other
+        # programs, or one of its own); the device tensors above are
+        # written in place and read where they lie.
+        self.programs = programs if programs is not None else prog_mod.Cache(dev)
+        self.programs.own(self.desc, self.desc_mask, self.points_w_dev, self.points_ok_dev)
 
     @property
     def count(self) -> int:
@@ -253,7 +266,7 @@ class LoopDatabase:
         """Loop detection with precomputed query descriptors: one device
         pass (`_detect_fused_kernel`) and one copy of its packed result to
         the host, then the host gate."""
-        packed = self._detect_packed(_detect_fused_kernel, (desc_q, kp_mask, kps), intr)
+        packed = self._detect_packed((desc_q, kp_mask, kps), intr)
         if packed is None:
             return None
         return self._gate_packed(
@@ -269,10 +282,11 @@ class LoopDatabase:
         (the current keyframe's landmarks, in keypoint order) and
         `pts_q_ok` stay on the device; `R_cur`, `t_cur` are the host's
         odometry pose. One device pass, one copy to the host."""
-        query = (desc_q, kp_mask, kps, pts_q, pts_q_ok,
-                 torch.as_tensor(R_cur, device=self.device),
-                 torch.as_tensor(t_cur, device=self.device))
-        packed = self._detect_packed(_detect_fused_sim3_kernel, query, intr)
+        pose = [x if isinstance(x, torch.Tensor)
+                else prog_mod.host_tensors([np.ascontiguousarray(x)], self.device)[0]
+                for x in (R_cur, t_cur)]
+        query = (desc_q, kp_mask, kps, pts_q, pts_q_ok, *pose)
+        packed = self._detect_packed(query, intr)
         if packed is None:
             return None
         cand = self._gate_packed(packed, R_cur, t_cur, path_len, rot_len, seam_t, seam_r)
@@ -290,22 +304,28 @@ class LoopDatabase:
         return cand._replace(s_rel=s_g, R_rel=packed[17:26].reshape(3, 3).astype(np.float32),
                              t_rel=packed[26:29].astype(np.float32))
 
-    def _detect_packed(self, kernel, query, intr):
-        """One detection kernel over the database (hypotheses drawn from
-        its generator) and one copy of the packed result to the host;
-        None when no entry is outside the temporal guard."""
+    def _detect_packed(self, query, intr):
+        """The detection's segments over the database (hypotheses drawn from
+        its generator, `pnp.draw_hypotheses`), through its programs, and one
+        copy of the packed result to the host; None when no entry is
+        outside the temporal guard."""
         p = self.params
         eligible = self._eligible()
         if not eligible.any():
             return None
         thresh = (p.pnp_threshold_px / float(intr.fx)) ** 2
-        packed = kernel(
-            *query, self.desc, self.desc_mask, self.points_w_dev, self.points_ok_dev,
-            torch.from_numpy(eligible).to(self.device), intr, thresh,
-            p.min_matches, p.min_inliers,
-            functools.partial(pnp.draw_hypotheses, self.generator),
-        )
+        db = (self.desc, self.desc_mask, self.points_w_dev, self.points_ok_dev)
+        eligible = prog_mod.host_tensors([eligible], self.device)[0]
+        packed = _detect(self._run, query, db, eligible, intr, thresh, p.min_matches,
+                         p.min_inliers, functools.partial(pnp.draw_hypotheses, self.generator))
         return packed.cpu().numpy()
+
+    def _run(self, name, fn, statics, *args):
+        """One detection segment as the program of its name, static
+        arguments and input shapes."""
+        shapes = tuple(tuple(x.shape) for x in prog_mod.flatten(args)[0])
+        key = (name, tuple(sorted(statics.items())), shapes)
+        return self.programs.get(key, functools.partial(fn, **statics))(*args)
 
     def _gate_packed(self, packed, R_cur, t_cur, path_len, rot_len,
                      seam_t=None, seam_r=None):
@@ -425,31 +445,117 @@ def _match_counts(desc_q, mask_q, desc_db, mask_db):
     return torch.sum(ok, dim=-1)
 
 
-def _verify(desc_q, mask_q, kps_q, desc_db, mask_db, pts_db, pts_ok_db, eligible, intr,
-            thresh, min_matches, min_inliers, draw):
-    """Capacity-wide match scoring, best candidate, per-match association
-    and PnP RANSAC (hypotheses from `draw(mask)`), in tensor ops with no
-    host sync of their own (on CUDA the solvers inside PnP check their
-    status on the host). PnP always runs; `is_cand` says whether the
-    match gates passed. Returns (head, is_cand, PnP result, match mask,
-    matched candidate landmarks), head = [best_matches, best_slot,
-    n_matched_with_3d, pnp_inliers (0 without a candidate)]."""
+def _match_stage(desc_q, mask_q, kps_q, desc_db, mask_db, pts_db, pts_ok_db, eligible, *,
+                 intr, min_matches, min_inliers):
+    """Capacity-wide match scoring, the best candidate and the per-match
+    association. Returns (head3 = [best_matches, best_slot,
+    n_matched_with_3d], is_cand, match mask, matched candidate landmarks,
+    normalized query keypoints); is_cand says whether the match gates
+    passed."""
     counts = _match_counts(desc_q, mask_q, desc_db, mask_db)
     counts = torch.where(eligible, counts, -1)
     best = torch.argmax(counts)
-    idx2, _, ok = descriptors.match(desc_q, mask_q, desc_db[best], mask_db[best])
-    ok = ok & pts_ok_db[best][idx2]
+    idx2, _, ok = descriptors.match(desc_q, mask_q, row(desc_db, best),
+                                    row(mask_db, best))
+    ok = ok & row(pts_ok_db, best)[idx2]
     n_3d = torch.sum(ok)
-    pts3d = pts_db[best][idx2]
+    pts3d = row(pts_db, best)[idx2]
     x = cam_mod.normalize(kps_q, intr)
-    is_cand = (counts[best] >= min_matches) & (n_3d >= min_inliers)
+    n_best = row(counts, best)
+    is_cand = (n_best >= min_matches) & (n_3d >= min_inliers)
+    head3 = torch.stack([n_best.to(torch.float32), best.to(torch.float32),
+                         n_3d.to(torch.float32)])
+    return head3, is_cand, ok, pts3d, x
+
+
+def _dlt_stage(pts3d, x, idx):
+    """The hypotheses' DLT systems (`pnp.dlt_system`) from their indices."""
+    return pnp.dlt_system(pts3d[idx], x[idx])
+
+
+def _pnp_head(head3, is_cand, res):
+    """[best_matches, best_slot, n_matched_with_3d, pnp_inliers (0 without
+    a candidate)]."""
+    return torch.cat([head3, torch.where(is_cand, res.num_inliers, 0).to(torch.float32)[None]])
+
+
+def _pnp_stage(U, s, Vt, tvec, pts3d, x, ok, is_cand, head3, *, thresh):
+    """The hypotheses' poses from their SVDs, MSAC and the refinement
+    (`pnp.score_and_refine`); the 16-float packed vector."""
+    res = pnp.score_and_refine(*pnp.dlt_finish(U, s, Vt, tvec), pts3d, x, ok,
+                               threshold=thresh)
+    R, t = _select_pnp(is_cand, res)
+    return torch.cat([_pnp_head(head3, is_cand, res), R.reshape(-1), t])
+
+
+def _pnp_sim3_stage(U, s, Vt, tvec, pts3d, x, ok, is_cand, head3, pts_q, pts_q_ok, R_cur,
+                    t_cur, *, thresh):
+    """`_pnp_stage`, then the masked Umeyama's moments up to its SVD: the
+    PnP inliers' camera-frame coordinates, the current keyframe's
+    landmarks through its odometry pose onto the candidate's through the
+    PnP pose. Returns (packed 16, covariance, moments)."""
+    res = pnp.score_and_refine(*pnp.dlt_finish(U, s, Vt, tvec), pts3d, x, ok,
+                               threshold=thresh)
+    R, t = _select_pnp(is_cand, res)
+    p_i = se3.transform(res.R, res.t, pts3d)
+    p_j = se3.transform(R_cur, t_cur, pts_q)
+    cov, moments = sim3.umeyama_moments(p_j, p_i, res.inliers & ok & pts_q_ok)
+    return torch.cat([_pnp_head(head3, is_cand, res), R.reshape(-1), t]), cov, moments
+
+
+def _umeyama_stage(U, D, Vt, moments, is_cand, packed16):
+    """The Umeyama similarity from its SVD, (1, I, 0) without a candidate;
+    the 29-float packed vector."""
+    s_g, R_g, t_g = sim3.umeyama_finish(U, D, Vt, *moments)
+    eye = torch.eye(3, dtype=torch.float32, device=R_g.device)
+    s_g = torch.where(is_cand, s_g, 1.0)
+    R_g = torch.where(is_cand, R_g, eye)
+    t_g = torch.where(is_cand, t_g, 0.0)
+    return torch.cat([packed16, s_g[None], R_g.reshape(-1), t_g])
+
+
+def _eager(name, fn, statics, *args):
+    return fn(*args, **statics)
+
+
+def _detect(run, query, db, eligible, intr, thresh, min_matches, min_inliers, draw):
+    """The device side of a detection: segments (`run(name, fn, statics,
+    *args)`: eagerly, or as captured programs) between the calls that
+    read the device on the host: the hypotheses' draw (`draw(mask)`, the
+    database's generator) and the solvers that check their status on the
+    host on CUDA (`eigh`, `svd`). `query` is (desc, mask, kps) for
+    stereo, with (landmarks, their mask, R_cur, t_cur) after them for the
+    Sim(3) variant. Returns the packed vector (16 or 29 floats)."""
+    head3, is_cand, ok, pts3d, x = run(
+        "detect_match", _match_stage,
+        dict(intr=intr, min_matches=min_matches, min_inliers=min_inliers),
+        *query[:3], *db, eligible)
+    AtA, Xh = run("detect_dlt", _dlt_stage, {}, pts3d, x, draw(ok))
+    _, vecs = torch.linalg.eigh(AtA)
+    M, tvec = run("detect_dlt_sign", pnp.dlt_sign, {}, vecs, Xh)
+    U, s, Vt = torch.linalg.svd(M)
+    args = (U, s, Vt, tvec, pts3d, x, ok, is_cand, head3)
+    if len(query) == 3:
+        return run("detect_pnp", _pnp_stage, dict(thresh=thresh), *args)
+    packed16, cov, moments = run("detect_pnp_sim3", _pnp_sim3_stage, dict(thresh=thresh),
+                                 *args, *query[3:])
+    U, D, Vt = torch.linalg.svd(cov)
+    return run("detect_umeyama", _umeyama_stage, {}, U, D, Vt, moments, is_cand, packed16)
+
+
+def _verify(desc_q, mask_q, kps_q, desc_db, mask_db, pts_db, pts_ok_db, eligible, intr,
+            thresh, min_matches, min_inliers, draw):
+    """Match scoring, the best candidate, the association and PnP RANSAC
+    (hypotheses from `draw(mask)`), eagerly. PnP always runs; `is_cand`
+    says whether the match gates passed. Returns (head, is_cand, PnP
+    result, match mask, matched candidate landmarks), head =
+    [best_matches, best_slot, n_matched_with_3d, pnp_inliers (0 without a
+    candidate)]."""
+    head3, is_cand, ok, pts3d, x = _match_stage(
+        desc_q, mask_q, kps_q, desc_db, mask_db, pts_db, pts_ok_db, eligible, intr=intr,
+        min_matches=min_matches, min_inliers=min_inliers)
     res = pnp.pnp_ransac_from_indices(draw(ok), pts3d, x, ok, threshold=thresh)
-    n_inl = torch.where(is_cand, res.num_inliers, 0)
-    head = torch.stack([
-        counts[best].to(torch.float32), best.to(torch.float32),
-        n_3d.to(torch.float32), n_inl.to(torch.float32),
-    ])
-    return head, is_cand, res, ok, pts3d
+    return _pnp_head(head3, is_cand, res), is_cand, res, ok, pts3d
 
 
 def _select_pnp(is_cand, res):
@@ -462,14 +568,11 @@ def _select_pnp(is_cand, res):
 def _detect_fused_kernel(desc_q, mask_q, kps_q, desc_db, mask_db, pts_db,
                          pts_ok_db, eligible, intr, thresh, min_matches,
                          min_inliers, draw):
-    """The whole device side of a detection (`_verify`). Returns the
-    16-float packed vector [best_matches, best_slot, n_matched_with_3d,
-    pnp_inliers, R(9), t(3)]."""
-    head, is_cand, res, _, _ = _verify(desc_q, mask_q, kps_q, desc_db, mask_db, pts_db,
-                                       pts_ok_db, eligible, intr, thresh, min_matches,
-                                       min_inliers, draw)
-    R, t = _select_pnp(is_cand, res)
-    return torch.cat([head, R.reshape(-1), t])
+    """The whole device side of a detection, eagerly (`_detect`). Returns
+    the 16-float packed vector [best_matches, best_slot,
+    n_matched_with_3d, pnp_inliers, R(9), t(3)]."""
+    return _detect(_eager, (desc_q, mask_q, kps_q), (desc_db, mask_db, pts_db, pts_ok_db),
+                   eligible, intr, thresh, min_matches, min_inliers, draw)
 
 
 def _detect_fused_sim3_kernel(desc_q, mask_q, kps_q, pts_q, pts_q_ok, R_cur, t_cur,
@@ -483,15 +586,6 @@ def _detect_fused_sim3_kernel(desc_q, mask_q, kps_q, pts_q, pts_q_ok, R_cur, t_c
     points in the same camera, in two scales). Packed: [matches, slot,
     n3d, inliers, R_pnp(9), t_pnp(3), s_g, R_g(9), t_g(3)] (29 floats);
     (1, I, 0) for the fit without a candidate."""
-    head, is_cand, res, ok, pts3d = _verify(desc_q, mask_q, kps_q, desc_db, mask_db,
-                                            pts_db, pts_ok_db, eligible, intr, thresh,
-                                            min_matches, min_inliers, draw)
-    p_i = se3.transform(res.R, res.t, pts3d)
-    p_j = se3.transform(R_cur, t_cur, pts_q)
-    s_g, R_g, t_g = sim3.umeyama_masked(p_j, p_i, res.inliers & ok & pts_q_ok)
-    R, t = _select_pnp(is_cand, res)
-    eye = torch.eye(3, dtype=torch.float32, device=R.device)
-    s_g = torch.where(is_cand, s_g, 1.0)
-    R_g = torch.where(is_cand, R_g, eye)
-    t_g = torch.where(is_cand, t_g, 0.0)
-    return torch.cat([head, R.reshape(-1), t, s_g[None], R_g.reshape(-1), t_g])
+    return _detect(_eager, (desc_q, mask_q, kps_q, pts_q, pts_q_ok, R_cur, t_cur),
+                   (desc_db, mask_db, pts_db, pts_ok_db), eligible, intr, thresh,
+                   min_matches, min_inliers, draw)

@@ -15,7 +15,8 @@ which `trajectory()` and `graph_trajectory()` return.
 The digest (its descriptor windows copied by K1) runs on the dispatch
 thread, as in stereo SLAM; the current keyframe's landmarks go to the
 host for the database's mirror and stay on the device for the Umeyama
-fit. The solve runs on the engine's device, on the worker thread.
+fit. The solve runs on the engine's device, on the worker thread, as the
+loop layer's program of its bucket.
 """
 
 from __future__ import annotations
@@ -82,6 +83,7 @@ class MonoSLAM(LoopLayer, MonocularVO):
 
     def _solve(self, K, debug):
         out, info = pgs.solve_padded(self.pg_s, self.pg_R, self.pg_t, self.pg_edges,
-                                     pgs.PGParams(iters=25), device=self.device)
+                                     pgs.PGParams(iters=25), device=self.device,
+                                     programs=self._loop_programs)
         return (out.s[:K].cpu().numpy(), out.R[:K].cpu().numpy(), out.t[:K].cpu().numpy(),
                 info)

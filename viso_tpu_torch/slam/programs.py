@@ -8,7 +8,8 @@ call; both trace the program once at fixed shapes and run it again on new
 inputs. Each call:
 
   * stages its arguments into static buffers that the program owns: a
-    tensor is copied in, a Python bool, int or float (a slot, an eviction
+    tensor is copied in (from pinned host memory without waiting for
+    the device), a Python bool, int or float (a slot, an eviction
     flag, a frame id: what the JAX jit traces) is written into a 0-d
     tensor with `fill_`, which puts the value in the kernel's arguments
     without a host copy. A tensor the engine keeps for its whole life
@@ -16,9 +17,9 @@ inputs. Each call:
     copy; passing another tensor in its place raises;
   * on the card: at the first call, warms the function up on a side
     stream (two eager calls: lazy library and handle set-up), captures
-    it with `torch.cuda.graph(..., capture_error_mode="thread_local")`
-    and replays; later calls replay. A capture that fails raises: there
-    is no eager fallback and no switch;
+    it there (`capture_error_mode="thread_local"`) and replays; later
+    calls replay. A capture that fails raises: there is no eager
+    fallback and no switch;
   * on the CPU: calls the function eagerly and copies its outputs into
     static output buffers, so the CPU sees the aliasing the card does;
   * returns the same output tensors every time. They hold this call's
@@ -34,9 +35,27 @@ adds it (`Program._replayed`).
 
 The bare functions stay callable: tools and checks that want the eager
 version call them directly (`vo._track(...)`).
+
+A layer that runs one function at several static shapes (the SLAM loop
+layer: a pose-graph solve per power-of-two bucket, loop detection, the
+keyframe digest) keeps its programs in a `Cache`, keyed by name and
+static shape as the JAX jit cache is. A cached program's first call runs
+the function eagerly on the caller's stream and returns that result
+(it is the warm-up: lazy library and handle set-up on the calling
+thread); its second call captures, on a stream that only the cache's
+captures from the calling thread use, and replays on the caller's
+stream; later calls replay. Captures begin and end on their stream
+alone (`capture_begin(capture_error_mode="thread_local")`): no
+device-wide synchronisation, so one thread may capture while another
+replays or captures on its own stream. A capture never runs on a stream
+that eager work uses: work another thread or a finalizer enqueues there
+(the pinned host allocator records its events on the streams a block was
+copied on, when the block is freed) would join the graph.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -75,6 +94,14 @@ def unflatten(spec, leaves):
     return build(spec)
 
 
+def host_tensors(arrays, device):
+    """Numpy arrays as CPU tensors to stage into a program on `device`: in
+    pinned memory when it is a CUDA device, so that the copies need not
+    wait for it."""
+    pin = torch.device(device).type == "cuda"
+    return [torch.from_numpy(a).pin_memory() if pin else torch.from_numpy(a) for a in arrays]
+
+
 def measure_counts(fn):
     """Call `fn()`, then take back what it added to each of `COUNTERS`;
     returns {(object, attribute): moves} for the counters that moved."""
@@ -97,14 +124,26 @@ class Program:
     """One engine program, captured once and replayed (module docstring).
 
     fn: the bare function; device: the engine's; owned: the data pointers
-    of the tensors the engine keeps for its life, read in place."""
+    of the tensors the engine keeps for its life, read in place; name:
+    the program's name (the function's by default); capture_stream: a
+    callable giving the stream to capture on, for a `Cache`'s programs,
+    whose first call then runs `fn` eagerly and returns its result (the
+    warm-up) and whose second captures with no further warm-up (by
+    default: capture at the first call, on a new side stream after
+    WARMUP_CALLS there); counted: whether a capture measures `COUNTERS`
+    (a program that holds no counted kernel and is captured while another
+    thread launches one must not, or it would take that thread's launches
+    back)."""
 
-    def __init__(self, fn, device, owned=frozenset()):
+    def __init__(self, fn, device, owned=frozenset(), *, name=None, capture_stream=None,
+                 counted=True):
         self.fn = fn
-        self.name = getattr(fn, "__name__", type(fn).__name__)
+        self.name = name or getattr(fn, "__name__", type(fn).__name__)
         self.device = torch.device(device)
         self.owned = owned
         self.graphed = self.device.type == "cuda"
+        self.capture_stream = capture_stream
+        self.counted = counted
         self.spec = None
         self.inputs = None      # static input leaves (tensors, or None)
         self.values = None      # the Python scalars last written
@@ -113,15 +152,22 @@ class Program:
         self._out_leaves = None  # (CPU) the output leaves and which of
         self._passed = None      # them are views of an input
         self.counts = {}        # counter moves one replay holds
+        self.calls = 0
         self.replays = 0
 
     def __call__(self, *args):
         self._stage(args)
+        self.calls += 1
         if not self.graphed:
             return self._eager()
         if self.graph is None:
+            kw = {}
+            if self.capture_stream is not None:
+                if self.calls == 1:
+                    return self.fn(*unflatten(self.spec, self.inputs))
+                kw = {"warmups": 0, "counted": self.counted, "stream": self.capture_stream()}
             self.graph, self.outputs, self.counts = _capture(
-                self.fn, unflatten(self.spec, self.inputs), self.device)
+                self.fn, unflatten(self.spec, self.inputs), self.device, **kw)
         self.graph.replay()
         self._replayed()
         return self.outputs
@@ -150,7 +196,7 @@ class Program:
                     raise ValueError(f"{self.name}: argument {i} is {x.dtype} "
                                      f"{tuple(x.shape)}, captured as {s.dtype} "
                                      f"{tuple(s.shape)}")
-                s.copy_(x)
+                s.copy_(x, non_blocking=True)
             elif s is None:
                 if x is not None:
                     raise TypeError(f"{self.name}: argument {i} was None")
@@ -164,7 +210,11 @@ class Program:
 
     def _static(self, x):
         if isinstance(x, torch.Tensor):
-            return x if x.data_ptr() in self.owned else x.clone()
+            if x.data_ptr() in self.owned:
+                return x
+            if x.device != self.device:   # host memory: the program's own copy
+                return x.to(self.device, non_blocking=True)
+            return x.clone()
         if x is None:
             return None
         if type(x) not in _SCALAR_DTYPES:
@@ -188,23 +238,67 @@ class Program:
         return self.outputs
 
 
-def _capture(fn, args, device):
-    """Warm `fn(*args)` up on a side stream, capture it as a CUDA graph.
-    Returns (graph, static outputs, counter moves one replay holds)."""
+class Cache:
+    """Programs keyed by name and static shape, each made at its first
+    use (the JAX jit cache): `get(key, fn)` returns the program of `key`,
+    whose first element names it, made from `fn` when the key is new.
+    Its programs run eagerly at their first call and capture at their
+    second (module docstring). owned: data pointers read in place, a set
+    that the layer extends with the tensors it keeps for its life."""
+
+    def __init__(self, device, owned=()):
+        self.device = torch.device(device)
+        self.owned = set(owned)
+        self.programs: dict = {}
+        self._streams: dict = {}   # thread id -> its captures' stream
+
+    def own(self, *tensors):
+        self.owned.update(x.data_ptr() for x in tensors)
+
+    def get(self, key, fn, *, counted=False):
+        prog = self.programs.get(key)
+        if prog is None:
+            prog = self.programs[key] = Program(fn, self.device, self.owned, name=key[0],
+                                                capture_stream=self.capture_stream,
+                                                counted=counted)
+        return prog
+
+    def capture_stream(self):
+        """The stream the calling thread's captures use, made at its first
+        capture (within the cache's life, so that the stream pool's
+        round robin does not hand it to the layer's other streams)."""
+        ident = threading.get_ident()
+        if ident not in self._streams:
+            self._streams[ident] = torch.cuda.Stream(self.device)
+        return self._streams[ident]
+
+
+def _capture(fn, args, device, warmups=WARMUP_CALLS, counted=True, stream=None):
+    """Capture `fn(*args)` as a CUDA graph on `stream` (a new side stream
+    by default), after `warmups` eager calls there, ordered after the
+    current stream's work. Returns (graph, static outputs, counter moves
+    one replay holds)."""
     main = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(main)
-    with torch.cuda.stream(side):
-        for _ in range(WARMUP_CALLS):
-            fn(*args)
-    main.wait_stream(side)
+    stream = stream if stream is not None else torch.cuda.Stream(device)
+    stream.wait_stream(main)
     graph = torch.cuda.CUDAGraph()
     out = []
 
     def capture():
-        with torch.cuda.device(device), torch.cuda.graph(
-                graph, capture_error_mode="thread_local"):
-            out.append(fn(*args))
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out.append(fn(*args))
+            finally:
+                graph.capture_end()
 
-    counts = measure_counts(capture)
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        for _ in range(warmups):
+            fn(*args)
+    if counted:
+        counts = measure_counts(capture)
+    else:
+        capture()
+        counts = {}
+    main.wait_stream(stream)
     return graph, out[0], counts

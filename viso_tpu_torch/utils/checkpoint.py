@@ -197,8 +197,10 @@ def load_slam(path: str, config, loop_params=None, *, device):
     slam._rot_len = meta["rot_len"]
     slam._next_node = len(slam.pg_raw_R)
     db = slam.loop_db
-    db.desc = dev(data["db_desc"]).to(torch.bfloat16)
-    db.desc_mask = dev(data["db_desc_mask"])
+    # The device tensors are written in place: detection's programs read
+    # them where they lie.
+    db.desc.copy_(dev(data["db_desc"]).to(torch.bfloat16))
+    db.desc_mask.copy_(dev(data["db_desc_mask"]))
     for name in ("kp_uv", "points_w", "points_ok", "R", "t", "frame_id", "node_id",
                  "path_len", "rot_len", "insert_seq"):
         setattr(db, name, data["db_" + name].copy())
@@ -206,8 +208,8 @@ def load_slam(path: str, config, loop_params=None, *, device):
         db.seam_t = data["db_seam_t"].copy()
         db.seam_r = data["db_seam_r"].copy()
     # Device mirrors of the landmark geometry, read by detection.
-    db.points_w_dev = dev(db.points_w.astype(np.float32))
-    db.points_ok_dev = dev(db.points_ok)
+    db.points_w_dev.copy_(dev(db.points_w.astype(np.float32)))
+    db.points_ok_dev.copy_(dev(db.points_ok))
     db.total = meta["db_total"]
     if slam.kf_order:
         slam._refresh_templates(slam.kf_order[-1])
