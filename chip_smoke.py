@@ -103,12 +103,13 @@ raises and exits non-zero:
      "ranks sharing one card" (not a scaling number); (c) the mesh
      dryrun's StereoSLAM (`__graft_entry__.py` `dryrun_multichip`: 240x320,
      C=8, L=2048, 10 frames) with distribute_ba on the NCCL group (its
-     window BA the captured `ba_prep` and `ba_finish` programs around the
-     eager sharded solver, each replayed once a BA), under the dryrun's
-     assertions and within 1e-5 m of the same run without distribute_ba,
-     K1 launched; (d) `multiprocess_ba --engine`'s StereoVO
-     over 2 gloo ranks on the card, each within 0.05 m of its single-rank
-     run, ATEs below 0.08 m, ranks equal, K1 launched;
+     window BA the programs `ba_prep`, `ba_solve` and `ba_finish`, the
+     solve replayed from the second BA on, the others at every BA; each
+     BA's ms on the host clock), under the dryrun's assertions and within
+     1e-5 m of the same run without distribute_ba, K1 launched; (d)
+     `multiprocess_ba --engine`'s StereoVO over 2 gloo ranks on the card,
+     each within 0.05 m of its single-rank run, ATEs below 0.08 m, ranks
+     equal, K1 launched, the solve run "eager (gloo)";
  11. the stats-delay scenario and the diagnostic and profiling tools
      (`viso_tpu_torch/tools/`): (a) tests/test_torch_stats_stress.py's
      corridor with every stats sample delayed 0-10 frames (rng 3, 60
@@ -154,7 +155,21 @@ raises and exits non-zero:
      thread and a solve on the worker under
      `set_sync_debug_mode("error")`; each program's host enqueue ms,
      device ms and kernels, replayed and eager; the graph pools' bytes;
- 14. one JSON line with the kernel records (`launches`: the kernel's
+ 14. the monocular bootstrap's programs (the init chain's LK, the
+     two-view segments) and the captured sharded solve: (a) MonocularVO
+     on the mono cell's first BOOT_FRAMES frames with re-inits forced at
+     BOOT_REINITS, its bootstrap eager and through its programs, with the
+     synchronising calls and host ms per init frame and the calls' sites
+     (file:line), the poses of the two runs against each other, then
+     through its programs with calls 3 to 2 + REPLAY_CHECKS of each held
+     against an eager call bit for bit (K1's launches too) and a chained
+     init frame's programs under `set_sync_debug_mode("error")` but for
+     the two-view `eigh` and `svd`; (b) phase 10's problem over an NCCL
+     group of one rank as the `ba_solve` program: its first call eager,
+     its second captured, every call bit-equal to `ba.solve_impl`, the
+     all-reduce record restored after a replay, LM iters/s replayed
+     against eager and one replay's CUDA-event ms;
+ 15. one JSON line with the kernel records (`launches`: the kernel's
      launches summed over the main paths it is on, each counted from 0
      just before its path and read just after; the times: K1 summed over
      a tracked frame's 6 calls, K2 over the tool's 12), then the last
@@ -239,8 +254,9 @@ MONO_SLAM_SOLVE_TOL = 1e-3
 # The engine programs (and the SLAM loop layer's digest) that call K1, for
 # its launch counts by call site.
 K1_SITES = {"_track": "track", "_templates_program": "templates",
-            "_mono_kf_program": "lk", "_try_initialize": "lk", "_ba_program": "photo-BA",
-            "_stereo_kf_program": "stereo_kf", "digest": "digest"}
+            "_mono_kf_program": "lk", "_try_initialize": "lk", "_init_track_program": "lk",
+            "init_track": "lk", "_ba_program": "photo-BA", "_stereo_kf_program": "stereo_kf",
+            "digest": "digest"}
 CLI_FRAMES = 30
 # tests/test_run_cli.py's bounds on the summary's ATE.
 CLI_ATE_LIMITS = {"stereo": 0.2, "slam": 0.3, "mono": 2.0, "mono-slam": 2.0}
@@ -282,6 +298,18 @@ PROGRAM_TIME_REPS = 3
 # stereo cell's graphs read gaps of 0 to 2.5e-4, and two eager solves on
 # the same inputs up to 1.5e-4 (PERF.md).
 LOOP_SOLVE_TOL = 1e-3
+# Phase 14: the mono cell's first frames with re-inits forced at
+# BOOT_REINITS (the cell's engine tracks from frame 5, and a bootstrap
+# takes 4 chained frames: 2 calls of each program, then its checked
+# replays, then a chained frame under the error mode); the two-view
+# solvers left out of the error-mode check (they read their status on the
+# host on CUDA: ops/twoview.py); phase 10's solve, timed over REPS calls.
+BOOT_FRAMES, BOOT_REINITS = 80, (30, 50)
+BOOT_SOLVERS = ("eigh", "svd")
+# init_track and the two-view segments (the homography's refit twice:
+# with and without the next refit's system).
+BOOT_PROGRAMS = 9
+STRICT_RAN = ["init_track", "twoview.initialize"]
 # The timings summed over a tracked frame's calls (K1) or the tool's sweep (K2).
 FRAME_KEYS = ("device_ms", "host_ms", "floor_ms", "bound_ms", "library_ms", "plain_ms",
               "entry_ms")
@@ -537,6 +565,15 @@ def render_orbit(synthetic):
     return frames, Rs, ts
 
 
+def dispatch_stream(torch, dev):
+    """The stream a SLAM run's frames are enqueued on. Its timed windows end
+    in a synchronise of this stream alone: a device-wide synchronise while
+    the loop layer's worker captures a program on its own stream is refused
+    ("operation not permitted when stream is capturing") and breaks that
+    capture."""
+    return torch.cuda.current_stream(dev)
+
+
 class SolveTimer:
     """The pose-graph solves of a SLAM run on its worker thread: their
     host time (each ends in the copy of its result to the host), what
@@ -582,7 +619,8 @@ def graph_pools(torch, slam):
     and the bytes their CUDA graphs' private memory pools hold, reserved
     and allocated (`torch.cuda.memory_snapshot`: the segments of those
     pools)."""
-    progs = list(slam._loop_programs.programs.values()) + list(slam._kernels.values())
+    progs = (list(slam._loop_programs.programs.values()) + list(slam._kernels.values())
+             + list(slam._cache.programs.values()))
     pools = {tuple(p.graph.pool()) for p in progs if p.graph is not None}
     segs = [s for s in torch.cuda.memory_snapshot()
             if tuple(s.get("segment_pool_id", (0, 0))) in pools]
@@ -604,12 +642,13 @@ def slam_phase(torch, extract, extract_aligned, frames, Rs, ts, metrics, dev, ca
                       device=dev)
     solves = SolveTimer(slam)
     funnel = diag_loops.Funnel(slam)
+    dispatch = dispatch_stream(torch, dev)
     try:
         nxt = slam.to_device(*frames[0])
         for i in range(SLAM_WARMUP):
             cur, nxt = nxt, slam.to_device(*frames[i + 1])
             slam.process(*cur)
-        torch.cuda.synchronize()
+        dispatch.synchronize()
         per_frame = []
         t0 = time.perf_counter()
         for i in range(SLAM_WARMUP, SLAM_FRAMES):
@@ -618,7 +657,7 @@ def slam_phase(torch, extract, extract_aligned, frames, Rs, ts, metrics, dev, ca
             nxt = slam.to_device(*frames[i + 1]) if i + 1 < SLAM_FRAMES else None
             slam.process(*cur)
             per_frame.append(time.perf_counter() - tf)
-        torch.cuda.synchronize()
+        dispatch.synchronize()
         elapsed = time.perf_counter() - t0
         t1 = time.perf_counter()
         slam.join()
@@ -748,13 +787,16 @@ def mono_phase(torch, extract, frames, Rs, ts, dev, card):
             torch.cuda.set_sync_debug_mode("warn")
             try:
                 nxt = vo.to_device(frames[0])
+                per_frame = []   # (syncs, host ms) of each process() call
                 for i in range(MONO_FRAMES):
                     if i == MONO_WARMUP:
                         torch.cuda.synchronize()
                         t0 = time.perf_counter()
                     cur = nxt
                     nxt = vo.to_device(frames[i + 1]) if i + 1 < MONO_FRAMES else None
+                    n0, t_f = len(caught), time.perf_counter()
                     vo.process(cur)
+                    per_frame.append((len(caught) - n0, 1e3 * (time.perf_counter() - t_f)))
                 torch.cuda.synchronize()
                 elapsed = time.perf_counter() - t0
             finally:
@@ -801,6 +843,13 @@ def mono_phase(torch, extract, frames, Rs, ts, dev, card):
           f"{states.index('tracking')}, {states.count('init')} frames in init, {len(syncs)} "
           f"synchronising calls over {MONO_FRAMES} frames (set_sync_debug_mode warn), by line "
           f"{sync_sites} [{card}]")
+    init = [f for f, r in zip(per_frame, vo.results) if r.state == "init"]
+    print(f"MonocularVO init frames (bootstrap and re-init, their programs replayed): "
+          f"{len(init)}, synchronising calls per init frame mean "
+          f"{np.mean([n for n, _ in init]):.2f} (min {min(n for n, _ in init)}, max "
+          f"{max(n for n, _ in init)}), host ms per init frame median "
+          f"{np.median([ms for _, ms in init]):.3f} mean {np.mean([ms for _, ms in init]):.3f} "
+          f"[{card}]")
     print(f"K1 launches during the mono run: {launches}, by call site "
           f"{dict(sorted(sites.counts.items()))}")
     n_kernels, dev_ms, wall_ms, k1_sites = prof_kf
@@ -941,13 +990,14 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
     solves = SolveTimer(slam)
     recorder = LoopRecorder(torch, slam)
     funnel = diag_loops.Funnel(slam)
+    dispatch = dispatch_stream(torch, dev)
     try:
         with sites:
             nxt = slam.to_device(frames[0])
             per_frame = []
             for i in range(SLAM_FRAMES):
                 if i == MONO_SLAM_WARMUP:
-                    torch.cuda.synchronize()
+                    dispatch.synchronize()
                     t0 = time.perf_counter()
                 tf = time.perf_counter()
                 cur = nxt
@@ -955,7 +1005,7 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
                 slam.process(cur)
                 if i >= MONO_SLAM_WARMUP:
                     per_frame.append(time.perf_counter() - tf)
-            torch.cuda.synchronize()
+            dispatch.synchronize()
             elapsed = time.perf_counter() - t0
             t1 = time.perf_counter()
             slam.join()
@@ -1356,8 +1406,14 @@ def dist_phase(torch, extract, dev, card):
                 run_ba = vo._run_window_ba
 
                 def counted(*a, _run=run_ba, _calls=ba_calls):
-                    _calls.append(1)
-                    return _run(*a)
+                    # Each window BA alone on the host clock, the card idle
+                    # before it and after it.
+                    torch.cuda.synchronize()
+                    t_ba = time.perf_counter()
+                    out = _run(*a)
+                    torch.cuda.synchronize()
+                    _calls.append(1e3 * (time.perf_counter() - t_ba))
+                    return out
 
                 vo._run_window_ba = counted
                 extract.launch.launches = 0
@@ -1368,8 +1424,9 @@ def dist_phase(torch, extract, dev, card):
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 launches_c = extract.launch.launches
-                progs = {n: vo._kernels.get(n) for n in ("ba", "ba_prep", "ba_finish")}
+                progs = {n: vo._kernels.get(n) for n in ("ba", "ba_prep", "ba_solve", "ba_finish")}
                 replays = {n: p.replays for n, p in progs.items() if p is not None}
+                listing = {n: m for n, m in vo.program_listing().items() if n.startswith("ba")}
                 t_fin = vo.t.cpu().numpy()
                 R_est, t_est = vo.trajectory()
                 centres[distribute] = metrics.camera_centers(R_est, t_est)
@@ -1380,10 +1437,14 @@ def dist_phase(torch, extract, dev, card):
                                        align=True, with_scale=False)
                 print(f"(c) dryrun StereoSLAM distribute_ba={distribute}: {len(frames)} frames "
                       f"in {wall:.2f} s, {nodes} nodes, {kfs} keyframes, {len(ba_calls)} window "
-                      f"BAs (on the NCCL group: {on_group}), ATE {ate:.6f} m, K1 launches "
-                      f"{launches_c}; programs replayed {replays} [{card}]")
-                want = ({"ba_prep": len(ba_calls), "ba_finish": len(ba_calls)} if distribute
-                        else {"ba": len(ba_calls)})
+                      f"BAs (on the NCCL group: {on_group}), BA ms per keyframe (host clock, "
+                      f"synchronised) {[round(ms, 3) for ms in ba_calls]}, ATE {ate:.6f} m, K1 "
+                      f"launches {launches_c}; programs replayed {replays}, run as {listing} "
+                      f"[{card}]")
+                # The sharded solve: eager at its first call, captured at its second.
+                n_ba = len(ba_calls)
+                want = ({"ba_prep": n_ba, "ba_solve": n_ba - 1, "ba_finish": n_ba} if distribute
+                        else {"ba": n_ba})
                 if replays != want:
                     raise AssertionError(f"(c) distribute_ba={distribute}: window BA programs "
                                          f"replayed {replays}, expected {want}")
@@ -1433,10 +1494,11 @@ def dist_phase(torch, extract, dev, card):
     for r in ranks:
         print(f"(d) engine rank {r['rank']} of {r['world']} (gloo, one card): ATE single "
               f"{r['ate_single']:.6f} m, distributed {r['ate_dist']:.6f} m, max centre gap "
-              f"{r['max_diff']:.6f} m, K1 launches {r['k1_launches']} [{card}]")
+              f"{r['max_diff']:.6f} m, K1 launches {r['k1_launches']}, the solve run as "
+              f"{r['ba_solve']!r} [{card}]")
     print(f"(d) ranks equal {same}; {time.perf_counter() - t0:.1f} s")
     if not (same and all(multiprocess_ba.engine_ok(r) for r in ranks)
-            and all(r["k1_launches"] > 0 for r in ranks)):
+            and all(r["k1_launches"] > 0 and r["ba_solve"] == "eager (gloo)" for r in ranks)):
         raise AssertionError(f"(d): {ranks}")
     return launches_c + launches_d
 
@@ -1847,6 +1909,299 @@ def loop_programs_phase(torch, extract, orbit, dev, card):
         print(f"phase 13 {label} wall {time.perf_counter() - t0:.1f} s")
 
 
+class SyncSites:
+    """Synchronising calls while it is entered (`set_sync_debug_mode
+    ("warn")`): their count, and each call's innermost three frames in the
+    repository as "file:line <- file:line <- file:line"."""
+
+    def __init__(self, torch):
+        self.torch, self.sites, self.count = torch, collections.Counter(), 0
+
+    def __enter__(self):
+        import traceback
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" not in str(message).lower():
+                return
+            self.count += 1
+            stack = [f for f in traceback.extract_stack()[:-1]
+                     if f.filename.startswith(str(REPO)) and "chip_smoke" not in f.filename]
+            self.sites[" <- ".join(f"{os.path.relpath(f.filename, REPO)}:{f.lineno}"
+                                   for f in stack[::-1][:3])] += 1
+
+        self.warnings = warnings.catch_warnings()
+        self.warnings.__enter__()
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode(0)
+        self.warnings.__exit__(*exc)
+
+
+class InitReplayCheck:
+    """Phase 14. Wraps the programs a MonocularVO's bootstrap makes (its
+    `programs.Cache`): calls 3 to 2 + REPLAY_CHECKS of each (replays: a
+    cached program runs eagerly at its first call and captures at its
+    second) are each preceded by an eager call of its bare function on the
+    same staged inputs, held against it bit for bit with its K1 launches
+    (the init chain's LK). The eager calls' launches are taken back from
+    K1's counter: they compare, they are not the path's."""
+
+    def __init__(self, torch, vo, extract):
+        from viso_tpu_torch.slam import programs
+
+        self.torch, self.extract, self.programs = torch, extract, programs
+        self.cache, self.real_get, self.rows = vo._cache, vo._cache.get, []
+        self.cache.get = self.get
+
+    def done(self, programs: int) -> bool:
+        """Whether each of `programs` programs has had its checked replays."""
+        keys = collections.Counter(r["key"] for r in self.rows)
+        return len(keys) == programs and min(keys.values()) >= REPLAY_CHECKS
+
+    def get(self, key, fn, **kw):
+        prog = self.real_get(key, fn, **kw)
+        torch, launch, flatten = self.torch, self.extract.launch, self.programs.flatten
+
+        def call(*args):
+            if not 2 <= prog.calls <= 1 + REPLAY_CHECKS:
+                return prog(*args)
+            prog._stage(args)
+            n0 = launch.launches
+            ref = [x.clone() for x in flatten(prog.fn(*self.programs.unflatten(
+                prog.spec, prog.inputs)))[0] if isinstance(x, torch.Tensor)]
+            n_eager = launch.launches - n0
+            launch.launches = n0
+            out = prog(*args)
+            n_replay = launch.launches - n0
+            got = [x for x in flatten(out)[0] if isinstance(x, torch.Tensor)]
+            self.rows.append(dict(
+                key=key, name=key[0], call=prog.calls, replays=prog.replays, k1_eager=n_eager,
+                k1_replay=n_replay, equal=prog.graph is not None and len(got) == len(ref)
+                and all(bit_equal(torch, a, b) for a, b in zip(got, ref))))
+            return out
+
+        return call
+
+
+@contextlib.contextmanager
+def error_except_solvers(torch, vo, ran):
+    """`set_sync_debug_mode("error")` around the bootstrap's programs as the
+    engine calls them: the init chain's LK (`init_track`) and
+    `twoview.initialize` (its draws and segments), but for the two-view
+    solvers (BOOT_SOLVERS, which read their status on the host), run in
+    mode 0. `ran` collects what ran under it."""
+    from viso_tpu_torch.ops import twoview
+
+    real_run, real_init = vo._cache.run, twoview.initialize
+    real_solvers = {n: getattr(torch.linalg, n) for n in BOOT_SOLVERS}
+
+    def strict(name, fn):
+        def call(*args, **kw):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            ran.append(name)
+            return out
+        return call
+
+    def solver(name):
+        def call(*args, **kw):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return real_solvers[name](*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return call
+
+    def run(name, fn, statics, *args, **kw):
+        call = real_run if name != "init_track" else strict(name, real_run)
+        return call(name, fn, statics, *args, **kw)
+
+    vo._cache.run = run
+    twoview.initialize = strict("twoview.initialize", real_init)
+    for n in BOOT_SOLVERS:
+        setattr(torch.linalg, n, solver(n))
+    try:
+        yield
+    finally:
+        del vo._cache.run
+        twoview.initialize = real_init
+        for n, f in real_solvers.items():
+            setattr(torch.linalg, n, f)
+
+
+def bootstrap_run(torch, extract, frames, dev, mode):
+    """MonocularVO on the mono cell's first BOOT_FRAMES frames, re-inits
+    forced at BOOT_REINITS, its bootstrap eager ("eager") or through its
+    programs ("programs"), each frame's synchronising calls counted
+    (`SyncSites`) on the host clock; or through its programs checked by
+    `InitReplayCheck`, and then a chained init frame under
+    `error_except_solvers` ("checked"). Returns (engine, per-frame (syncs,
+    host ms), sync sites of the init frames, the checker, what ran under the
+    error mode, K1's launches)."""
+    from viso_tpu_torch.ops import ransac
+    from viso_tpu_torch.slam.engine import MonocularVO
+    from viso_tpu_torch.tools import mono_cell
+
+    vo = MonocularVO(mono_cell.config(), device=dev)
+    lost = vo._update_lost
+    vo._update_lost = lambda n: vo.frame_idx in BOOT_REINITS or lost(n)
+    checker, strict_ran = None, []
+    if mode == "checked":
+        checker = InitReplayCheck(torch, vo, extract)
+    elif mode == "eager":
+        vo._cache.run = lambda name, fn, statics, *args, counted=False: ransac.eager(
+            name, fn, statics, *args)
+    staged = [vo.to_device(f) for f in frames[:BOOT_FRAMES]]
+    torch.cuda.synchronize()
+    per_frame, sites = [], collections.Counter()
+    extract.launch.launches = 0
+    try:
+        for img in staged:
+            if mode != "checked":
+                torch.cuda.synchronize()
+                with SyncSites(torch) as sync:
+                    t0 = time.perf_counter()
+                    vo.process(img)
+                    per_frame.append((sync.count, 1e3 * (time.perf_counter() - t0)))
+                if vo.results[-1].state == "init":
+                    sites.update(sync.sites)
+            elif (strict_ran != STRICT_RAN and vo.state == "init" and vo.init_ref is not None
+                  and checker.done(BOOT_PROGRAMS)):
+                # Replays only (the checks are done); a reseed frame runs
+                # no two-view step, and the next frame tries again.
+                strict_ran.clear()
+                with error_except_solvers(torch, vo, strict_ran):
+                    vo.process(img)
+            else:
+                vo.process(img)
+        torch.cuda.synchronize()
+        launches = extract.launch.launches
+    finally:
+        vo.close()
+    return vo, per_frame, sites, checker, strict_ran, launches
+
+
+def bootstrap_phase(torch, extract, mono_frames, dev, card):
+    """Phase 14. (a) The monocular bootstrap's programs: MonocularVO on the
+    mono cell's first frames with forced re-inits, the bootstrap eager and
+    through its programs (synchronising calls and host ms per init frame,
+    the calls' sites, the poses against each other), then through its
+    programs with each replay held bit-equal to an eager call and a
+    chained init frame under `error_except_solvers`. (b) Phase 10's
+    problem over an NCCL group of one rank as the `ba_solve` program:
+    eager, captured, replayed, each bit-equal to `ba.solve_impl`; LM
+    iters/s replayed and eager. Returns K1's launches in (a)'s run through
+    the programs."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from viso_tpu_torch.backend import ba
+    from viso_tpu_torch.parallel import dist_ba, mesh as mesh_mod
+    from viso_tpu_torch.slam import programs
+    from viso_tpu_torch.tools import bench_dist_ba
+
+    t0 = time.perf_counter()
+    runs = {mode: bootstrap_run(torch, extract, mono_frames, dev, mode)
+            for mode in ("eager", "programs", "checked")}
+    for label in ("eager", "programs"):
+        vo, per_frame, sites, _, _, _ = runs[label]
+        states = [r.state for r in vo.results]
+        init = [f for f, st in zip(per_frame, states) if st == "init"]
+        print(f"(a) MonocularVO bootstrap {label}: {len(init)} init frames of {len(states)} "
+              f"(re-inits forced at {BOOT_REINITS}: {vo.num_reinits}), synchronising calls per "
+              f"init frame mean {np.mean([n for n, _ in init]):.2f} (min "
+              f"{min(n for n, _ in init)}, max {max(n for n, _ in init)}), host ms per init "
+              f"frame median {np.median([ms for _, ms in init]):.3f} mean "
+              f"{np.mean([ms for _, ms in init]):.3f} [{card}]")
+        print(f"(a) {label}: synchronising calls in the init frames by site: "
+              f"{dict(sites.most_common())}")
+        if not (vo.num_reinits == len(BOOT_REINITS) and states[-1] == "tracking"
+                and "init" in states[BOOT_REINITS[-1] + 1:]):
+            raise AssertionError(f"(a) {label}: no bootstrap after a forced re-init: {states}")
+    vo, _, _, checker, strict_ran, _ = runs["checked"]
+    for r in checker.rows:
+        print(f"(a) {r['name']} call {r['call']} (replay {r['replays']}): bit-equal to the eager "
+              f"call {r['equal']}, K1 {r['k1_replay']} replayed / {r['k1_eager']} eager [{card}]")
+    names = {key[0] for key in vo._cache.programs}
+    bad = [r for r in checker.rows if not (r["equal"] and r["k1_replay"] == r["k1_eager"])]
+    poses = {label: runs[label][0].trajectory() for label in runs}
+    gaps = {label: max(float(np.abs(a - b).max()) for a, b in zip(poses[label], poses["eager"]))
+            for label in ("programs", "checked")}
+    launches = runs["programs"][5]
+    print(f"(a) {len(vo._cache.programs)} bootstrap programs {sorted(names)}; largest pose gap "
+          f"to the eager run {gaps}; a chained init frame under set_sync_debug_mode('error') "
+          f"but for {BOOT_SOLVERS}: {strict_ran}; K1 launches through the programs {launches}; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    if (bad or not checker.done(BOOT_PROGRAMS) or len(vo._cache.programs) != BOOT_PROGRAMS
+            or launches <= 0
+            or strict_ran != STRICT_RAN):
+        raise AssertionError(f"(a): checked {len(checker.rows)} replays, failing {bad}, "
+                             f"strict {strict_ran}, launches {launches}")
+
+    # (b) phase 10's solve as the ba_solve program over NCCL, world 1.
+    t0 = time.perf_counter()
+    C, L, iters = DIST_CAMS, DIST_LANDMARKS, DIST_ITERS
+    prob = bench_dist_ba.build_problem(C, L, dev)
+    params = ba.BAParams(iters=iters, num_fixed=2)
+    out_1, info_1 = ba.solve_impl(prob, params)
+    with tempfile.TemporaryDirectory(prefix="viso_nccl_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=60))
+        try:
+            solver = dist_ba.ShardedSolver(mesh_mod.make_mesh(device=dev), params)
+            program = solver.program(programs.Cache(dev).capture_stream)
+            equal = []
+            for _ in range(2 + REPLAY_CHECKS):
+                out, info = program(prob)
+                equal.append(all(bit_equal(torch, getattr(out, k), getattr(out_1, k))
+                                 for k in ("R", "t", "points"))
+                             and all(bit_equal(torch, info[k], info_1[k]) for k in info_1))
+            calls, nbytes, _ = solver.stats.per_iter(iters)
+            replays = program.replays
+            rates = {}
+            for kind, fn in (("replayed", lambda: program(prob)), ("eager", lambda: solver(prob)),
+                             ("eager", lambda: solver(prob)), ("replayed", lambda: program(prob))):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for _ in range(bench_dist_ba.REPS):
+                    fn()
+                torch.cuda.synchronize()
+                rates.setdefault(kind, []).append(
+                    bench_dist_ba.REPS * iters / (time.perf_counter() - t1))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            program(prob)
+            end.record()
+            end.synchronize()
+            replay_ms = start.elapsed_time(end)
+        finally:
+            dist.destroy_process_group()
+    print(f"(b) ba_solve over NCCL world 1 (C={C} L={L}, {iters} LM iterations): calls 1-"
+          f"{2 + REPLAY_CHECKS} (eager, capture, replays) bit-equal to ba.solve_impl {equal}; "
+          f"replays {replays}; all-reduce {nbytes:.0f} bytes in {calls:.0f} calls per LM "
+          f"iteration (restored after a replay); LM iters/s replayed {rates['replayed']} eager "
+          f"{rates['eager']} (host clock, {bench_dist_ba.REPS} solves a turn, in turns replay, "
+          f"eager, eager, replay); one "
+          f"replayed solve {replay_ms:.3f} ms (CUDA events); {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    if not (all(equal) and program.graph is not None and replays == 1 + REPLAY_CHECKS
+            and (calls, nbytes) == (2, dist_ba.psum_bytes_per_iter(C))):
+        raise AssertionError(f"(b): equal {equal}, replays {replays}, "
+                             f"calls {calls} bytes {nbytes}")
+    return launches
+
+
 def main() -> int:
     # The run uses one card: show torch only the first visible one, so the
     # device count in the last line is the number of cards the run used.
@@ -2038,7 +2393,12 @@ def main() -> int:
     loop_programs_phase(torch, extract, orbit, dev, card)
     print(f"phase 13 wall {time.perf_counter() - t0:.1f} s")
 
-    # Phase 14: results.
+    # Phase 14: the monocular bootstrap's programs and the captured sharded solve.
+    t0 = time.perf_counter()
+    boot_k1 = bootstrap_phase(torch, extract, mono_frames, dev, card)
+    print(f"phase 14 wall {time.perf_counter() - t0:.1f} s")
+
+    # Phase 15: results.
     print(f"total wall {time.perf_counter() - t_start:.1f} s")
     # ms, plain_ms, bound_ms, library_ms: device times (CUDA graph replay),
     # K1 summed over a tracked frame's 6 calls, K2 over the tool's 12 calls.
@@ -2055,7 +2415,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         record("extract_windows", "viso_tpu_torch/csrc/extract_windows.cu",
                "viso_tpu/geometry/extract_pallas.py:64",
-               launches + slam_k1 + mono_k1 + cli_k1 + mono_slam_k1 + dist_k1 + tools_k1,
+               launches + slam_k1 + mono_k1 + cli_k1 + mono_slam_k1 + dist_k1 + tools_k1
+               + boot_k1,
                max_err, k1_frame),
         record("extract_aligned", "viso_tpu_torch/csrc/extract_aligned.cu",
                "tools/bench_extract.py:37", k2["launches"], k2["max_abs_err"], k2),

@@ -614,3 +614,97 @@ def test_digest_program_replays_equal_eager_calls_on_cuda(cuda_device):
     finally:
         slam.close()
     assert rows == [(1, 1, True)] * 4, rows
+
+
+# The monocular bootstrap's programs (the engine's programs.Cache): the
+# init chain's LK and the two-view segments, each captured at its second
+# call; a re-init forced at this frame gives a second bootstrap.
+INIT_REINIT_AT, INIT_CHECKS = 10, 3
+
+
+@pytest.mark.cuda
+def test_init_programs_replay_equal_eager_calls_on_cuda(cuda_device):
+    """Through a bootstrap and a forced re-init, each init program's calls
+    3 to 2 + INIT_CHECKS (replays) are held against an eager call of its
+    bare function on the same staged inputs: bit-equal, with the eager
+    call's K1 launches (LK in the init chain)."""
+    from viso_tpu_torch.slam import programs
+    from viso_tpu_torch.slam.engine import MonocularVO, VOConfig
+
+    vo = MonocularVO(VOConfig(**ENGINE_MONO), device=cuda_device)
+    lost = vo._update_lost
+    vo._update_lost = lambda n: vo.frame_idx == INIT_REINIT_AT or lost(n)
+    cache, real_get, rows = vo._cache, vo._cache.get, []
+
+    def get(key, fn, **kw):
+        prog = real_get(key, fn, **kw)
+
+        def call(*args):
+            if not 3 <= prog.calls + 1 <= 2 + INIT_CHECKS:
+                return prog(*args)
+            prog._stage(args)
+            before = t_ext.launch.launches
+            ref = [x.clone() for x in programs.flatten(
+                prog.fn(*programs.unflatten(prog.spec, prog.inputs)))[0]
+                if isinstance(x, torch.Tensor)]
+            eager, before = t_ext.launch.launches - before, t_ext.launch.launches
+            out = prog(*args)
+            replayed = t_ext.launch.launches - before
+            got = [x for x in programs.flatten(out)[0] if isinstance(x, torch.Tensor)]
+            rows.append((key[0], prog.graph is not None and replayed == eager
+                         and all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, ref))))
+            return out
+
+        return call
+
+    cache.get = get
+    try:
+        for f in _engine_frames(True, 30):
+            vo.process(*f)
+        states = [r.state for r in vo.results]
+    finally:
+        vo.close()
+    assert vo.num_reinits == 1 and states[-1] == "tracking"
+    names = {key[0] for key in cache.programs}
+    assert names == {"init_track", "essential_system", "essential_score", "essential_refine",
+                     "homography_system", "homography_score", "homography_refit",
+                     "twoview_select"}
+    assert {n for n, _ in rows} == names and all(ok for _, ok in rows), rows
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_ba_solve_program_replays_bit_equal(cuda_device, tmp_path):
+    """The sharded solve as the engine's `ba_solve` program over an NCCL
+    group of one rank: eager at its first call, captured at its second,
+    each of its four results bit-equal to `ba.solve_impl`, its collective
+    record restored after each replay."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from viso_tpu_torch.backend import ba
+    from viso_tpu_torch.parallel import dist_ba, mesh as mesh_mod
+    from viso_tpu_torch.slam import programs
+    from viso_tpu_torch.tools import bench_dist_ba
+
+    prob = bench_dist_ba.build_problem(16, 4096, cuda_device)
+    params = ba.BAParams(iters=10, num_fixed=2)
+    out_1, info_1 = ba.solve_impl(prob, params)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = mesh_mod.make_mesh(device=cuda_device)
+        assert dist_ba.capturable(mesh)
+        solver = dist_ba.ShardedSolver(mesh, params)
+        program = solver.program(programs.Cache(cuda_device).capture_stream)
+        rows = []
+        for _ in range(4):
+            out, info = program(prob)
+            rows.append(all(torch.equal(getattr(out, k), getattr(out_1, k))
+                            for k in ("R", "t", "points"))
+                        and all(torch.equal(info[k], info_1[k]) for k in info_1)
+                        and solver.stats.per_iter(10)[:2] == (2, 39_948))
+    finally:
+        dist.destroy_process_group()
+    assert rows == [True] * 4
+    assert program.graph is not None and program.replays == 3

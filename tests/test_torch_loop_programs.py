@@ -207,7 +207,7 @@ def test_segmented_detection_with_the_jax_draw_matches_reference(sim3):
         jnp.asarray(eligible), intr_j, jnp.asarray(THRESH, jnp.float32),
         jnp.asarray(20, jnp.int32), jnp.asarray(15, jnp.int32), key))
     db = (tdb.desc, tdb.desc_mask, tdb.points_w_dev, tdb.points_ok_dev)
-    packed_t = t_lc._detect(tdb._run, _query(q, sim3), db, torch.from_numpy(eligible),
+    packed_t = t_lc._detect(tdb.programs.run, _query(q, sim3), db, torch.from_numpy(eligible),
                             t_cam.Intrinsics.create(*INTR_ARGS), THRESH, 20, 15,
                             _jax_draw(key)).numpy()
     np.testing.assert_array_equal(packed_t[:4], packed_j[:4])
@@ -373,9 +373,9 @@ def test_digest_program_reads_nothing_on_the_host(digest_slam):
 
 def test_distributed_ba_prep_and_finish_are_programs(stereo_frames):
     """A distributed engine (world of one) runs its window BA as the
-    `ba_prep` and `ba_finish` programs around the eager sharded solver,
-    neither reading the device on the host, and ends where the
-    single-device engine ends, bit for bit."""
+    `ba_prep`, `ba_solve` (the sharded solver) and `ba_finish` programs,
+    none reading the device on the host, and ends where the single-device
+    engine ends, bit for bit."""
     poses = []
     for distribute in (False, True):
         vo = StereoVO(VOConfig(**CFG, distribute_ba=distribute), device="cpu")
@@ -387,7 +387,7 @@ def test_distributed_ba_prep_and_finish_are_programs(stereo_frames):
         vo.close()
         assert found == []
         assert ran == ({"track", "templates", "stereo_kf"}
-                       | ({"ba_prep", "ba_finish"} if distribute else {"ba"}))
+                       | ({"ba_prep", "ba_solve", "ba_finish"} if distribute else {"ba"}))
     for a, b in zip(*poses):
         np.testing.assert_array_equal(a, b)
 

@@ -3,11 +3,14 @@ decompositions (port of `viso_tpu/geometry/epipolar.py`).
 
 All solvers take normalized image coordinates (K^-1 applied) and batch
 over leading dimensions. Null vectors come from `eigh` of the normal
-matrix (ascending eigenvalues, as `jnp.linalg.eigh`), the essential
-manifold projection and the decompositions from `svd`. The sign of a
-null vector and of singular vectors depends on the solver, so a fitted E
-or H equals the JAX package's only up to scale and sign, and the
-candidate motions of a decomposition only as a set. On CUDA, batched
+matrix (ascending eigenvalues, as `jnp.linalg.eigh`; `null_vector`), the
+essential manifold projection and the decompositions from `svd`. Each
+fit and decomposition is also split at its solver call (`*_normal_matrix`
+before `eigh`; `project_essential` and `*_candidates` after `svd`), for
+callers that run the rest as captured programs (`ops/twoview.py`). The
+sign of a null vector and of singular vectors depends on the solver, so
+a fitted E or H equals the JAX package's only up to scale and sign, and
+the candidate motions of a decomposition only as a set. On CUDA, batched
 `eigh` and `svd` check their solver status on the host (a sync).
 """
 
@@ -18,13 +21,23 @@ import torch
 from viso_tpu_torch.geometry import se3
 
 
-def _weighted_nullvec(A, w=None):
-    """Eigenvector of the smallest eigenvalue of A^T diag(w) A, A (..., m, 9)."""
+def normal_matrix(A, w=None):
+    """A^T diag(w) A of constraint rows A (..., m, 9)."""
     if w is not None:
         A = A * w[..., None]
-    AtA = torch.einsum("...ki,...kj->...ij", A, A)
+    return torch.einsum("...ki,...kj->...ij", A, A)
+
+
+def null_vector(AtA):
+    """Eigenvector of the smallest eigenvalue of AtA (..., 9, 9): the
+    solver call (`eigh`, a host sync on CUDA)."""
     _, vecs = torch.linalg.eigh(AtA)
     return vecs[..., :, 0]
+
+
+def _weighted_nullvec(A, w=None):
+    """Eigenvector of the smallest eigenvalue of A^T diag(w) A, A (..., m, 9)."""
+    return null_vector(normal_matrix(A, w))
 
 
 def _epipolar_rows(x1, x2):
@@ -38,15 +51,30 @@ def _epipolar_rows(x1, x2):
     )
 
 
+def essential_normal_matrix(x1, x2, weights=None):
+    """The 8-point system's normal matrix (..., 9, 9) of (..., N, 2)
+    correspondences."""
+    return normal_matrix(_epipolar_rows(x1, x2), weights)
+
+
+def as_matrix(v):
+    """A null vector (..., 9) as the (..., 3, 3) matrix it holds row-major."""
+    return v.reshape(v.shape[:-1] + (3, 3))
+
+
+def project_essential(U, s, Vt):
+    """The essential matrix from the SVD of its unprojected fit: singular
+    values set to (1, 1, 0)."""
+    s_proj = torch.zeros_like(s)
+    s_proj[..., :2].fill_(1.0)   # fill_: no scalar copied from the host
+    return U @ (s_proj[..., :, None] * Vt)
+
+
 def fit_essential(x1, x2, weights=None):
     """8-point essential matrix of (..., N, 2) correspondences, N >= 8,
     projected onto the essential manifold (singular values 1, 1, 0)."""
-    e = _weighted_nullvec(_epipolar_rows(x1, x2), weights)
-    E = e.reshape(e.shape[:-1] + (3, 3))
-    U, s, Vt = torch.linalg.svd(E)
-    s_proj = torch.zeros_like(s)
-    s_proj[..., :2] = 1.0
-    return U @ (s_proj[..., :, None] * Vt)
+    E = as_matrix(null_vector(essential_normal_matrix(x1, x2, weights)))
+    return project_essential(*torch.linalg.svd(E))
 
 
 def _homogeneous(x):
@@ -121,7 +149,7 @@ def refine_essential(R0, t0, x1, x2, mask, tau, iters: int = 12, anneal: float =
     p1 = _homogeneous(x1)
     p2 = _homogeneous(x2)
     m = mask.to(dtype)
-    tau = torch.as_tensor(tau, dtype=dtype, device=dev)
+    tau = torch.full((), tau, dtype=dtype, device=dev)   # no host copy
     taus = tau * anneal ** torch.linspace(1.0, 0.0, iters, dtype=dtype, device=dev)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
 
@@ -165,10 +193,19 @@ def decompose_essential(E):
     """E (..., 3, 3) -> 4 candidate motions (R (..., 4, 3, 3), t (..., 4, 3)),
     |t| = 1, in the order (R1, t), (R1, -t), (R2, t), (R2, -t)."""
     U, _, Vt = torch.linalg.svd(E)
+    return essential_candidates(U, Vt)
+
+
+def essential_candidates(U, Vt):
+    """`decompose_essential` from the SVD of E."""
     U = _proper(U)
     Vt = _proper(Vt)
-    Wm = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                      dtype=E.dtype, device=E.device)
+    # W = [[0, -1, 0], [1, 0, 0], [0, 0, 1]], written on the device: a
+    # tensor of a host list is a copy that waits for it.
+    Wm = torch.zeros((3, 3), dtype=U.dtype, device=U.device)
+    Wm[0, 1].fill_(-1.0)
+    Wm[1, 0].fill_(1.0)
+    Wm[2, 2].fill_(1.0)
     R1 = U @ Wm @ Vt
     R2 = U @ Wm.T @ Vt
     t = U[..., :, 2]
@@ -188,14 +225,24 @@ def _homography_rows(x1, x2):
     return rows.reshape(rows.shape[:-3] + (rows.shape[-3] * 2, 9))
 
 
+def homography_normal_matrix(x1, x2, weights=None):
+    """The DLT system's normal matrix (..., 9, 9) of (..., N, 2)
+    correspondences, `weights` (..., N) per correspondence."""
+    if weights is not None:
+        weights = torch.repeat_interleave(weights, 2, dim=-1)
+    return normal_matrix(_homography_rows(x1, x2), weights)
+
+
+def homography_from_null(h):
+    """The homography of a DLT null vector, scaled so that H[2, 2] ~ 1."""
+    H = as_matrix(h)
+    return H / (H[..., 2:3, 2:3] + 1e-12)
+
+
 def fit_homography(x1, x2, weights=None):
     """DLT homography of (..., N, 2) correspondences, N >= 4, scaled so
     that H[2, 2] ~ 1."""
-    if weights is not None:
-        weights = torch.repeat_interleave(weights, 2, dim=-1)
-    h = _weighted_nullvec(_homography_rows(x1, x2), weights)
-    H = h.reshape(h.shape[:-1] + (3, 3))
-    return H / (H[..., 2:3, 2:3] + 1e-12)
+    return homography_from_null(null_vector(homography_normal_matrix(x1, x2, weights)))
 
 
 def homography_residual(H, x1, x2):
@@ -210,7 +257,11 @@ def decompose_homography(H):
     (R (..., 8, 3, 3), t (..., 8, 3) unit, n (..., 8, 3)), Faugeras-style
     SVD decomposition with every sign combination and each (t, n) twin
     (-t, -n); degenerate candidates score poorly in the motion selector."""
-    U, s, Vt = torch.linalg.svd(H)
+    return homography_candidates(*torch.linalg.svd(H))
+
+
+def homography_candidates(U, s, Vt):
+    """`decompose_homography` from the SVD of H."""
     d1, d2, d3 = s[..., 0], s[..., 1], s[..., 2]
     sgn = torch.linalg.det(U) * torch.linalg.det(Vt)
     d1 = d1 / d2

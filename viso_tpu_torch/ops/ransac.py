@@ -5,6 +5,13 @@ Split as `ops/pnp.py` is: `draw_indices` draws the minimal samples from a
 `torch.Generator`, and the `*_from_indices` functions take them. torch
 cannot reproduce a `jax.random` stream, so tests hand both packages the
 same indices.
+
+The `*_from_indices` functions are segments between the calls that read
+the device on the host on CUDA (the `eigh` and `svd` of
+`geometry/epipolar.py`), each run through `run(name, fn, statics, *args)`:
+eagerly by default, or as a captured program (`ops/twoview.py`). A best
+hypothesis is selected with `index_select` (`map_state.row`): indexing
+with a 0-d tensor reads it on the host.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import numpy as np
 import torch
 
 from viso_tpu_torch.geometry import epipolar
+from viso_tpu_torch.mapping.map_state import row
 
 
 class RansacResult(NamedTuple):
@@ -39,53 +47,103 @@ def draw_indices(generator, mask, num_hypotheses: int, sample_size: int):
     return torch.where(n_valid > 0, idx, 0)
 
 
-def ransac_from_indices(idx, x1, x2, mask, fit_fn, residual_fn, threshold: float):
-    """Generic batched RANSAC over hypotheses idx (S, k): fit all, count
-    inliers (residual < threshold, masked), keep the first best count."""
-    models = fit_fn(x1[idx], x2[idx])                          # (S, ...)
-    res = residual_fn(models, x1[None], x2[None])              # (S, N)
-    inl = (res < threshold) & mask[None, :]
-    counts = torch.sum(inl, dim=-1)
-    best = torch.argmax(counts)
-    return RansacResult(models[best], inl[best], counts[best], best)
+def eager(name, fn, statics, *args):
+    """A segment as a plain call: the eager path's `run(name, fn, statics,
+    *args)`. A caller that runs the segments as captured programs passes
+    its own (`slam/programs.Cache.run`)."""
+    return fn(*args, **statics)
 
 
-def essential_ransac_from_indices(idx, x1, x2, mask, threshold: float = 1e-5,
-                                  top_k: int = 8, refine_iters: int = 12):
-    """8-point essential RANSAC over hypotheses idx (S, 8): MSAC scoring,
-    then LM refinement on the essential manifold from the `top_k` best
-    hypotheses (ties in index order, as `lax.top_k`), keeping the best
-    final robust cost. `threshold` is the squared Sampson gate in
-    normalized units."""
-    models = epipolar.fit_essential(x1[idx], x2[idx])          # (S, 3, 3)
+def _essential_system(idx, x1, x2):
+    return epipolar.essential_normal_matrix(x1[idx], x2[idx])
+
+
+def _essential_score(U, s, Vt, x1, x2, mask, *, threshold, top_k):
+    """The hypotheses projected onto the manifold, MSAC-scored; the `top_k`
+    best (ties in index order, as `lax.top_k`) and their indices."""
+    models = epipolar.project_essential(U, s, Vt)              # (S, 3, 3)
     res = epipolar.epipolar_residual(models, x1[None], x2[None])
     res = torch.where(mask[None, :], res, threshold)
     scores = torch.sum(torch.clamp(res, max=threshold), dim=-1)
     top_idx = torch.argsort(scores, stable=True)[:top_k]
-    Rs, ts = epipolar.decompose_essential(models[top_idx])    # (K, 4, 3, 3)
+    return models[top_idx], top_idx
+
+
+def _essential_refine(U, Vt, top_idx, x1, x2, mask, *, threshold, refine_iters):
+    """LM refinement from the top hypotheses' first decompositions; the
+    best final robust cost wins."""
+    Rs, ts = epipolar.essential_candidates(U, Vt)             # (K, 4, 3, 3)
     tau = float(np.sqrt(np.float32(threshold)))
     R_f, t_f, cost_f = epipolar.refine_essential(
         Rs[:, 0], ts[:, 0], x1, x2, mask, tau, iters=refine_iters
     )
     best = torch.argmin(cost_f)
-    E = epipolar.essential_from_rt(R_f[best], t_f[best])
+    E = epipolar.essential_from_rt(row(R_f, best), row(t_f, best))
     inl = (epipolar.epipolar_residual(E, x1, x2) < threshold) & mask
-    return RansacResult(E, inl, torch.sum(inl), top_idx[best])
+    return RansacResult(E, inl, torch.sum(inl), row(top_idx, best))
+
+
+def essential_ransac_from_indices(idx, x1, x2, mask, threshold: float = 1e-5,
+                                  top_k: int = 8, refine_iters: int = 12, run=eager):
+    """8-point essential RANSAC over hypotheses idx (S, 8): MSAC scoring,
+    then LM refinement on the essential manifold from the `top_k` best
+    hypotheses (ties in index order, as `lax.top_k`), keeping the best
+    final robust cost. `threshold` is the squared Sampson gate in
+    normalized units. `run` runs the segments between the solver calls
+    (`eager`)."""
+    e = epipolar.null_vector(run("essential_system", _essential_system, {}, idx, x1, x2))
+    U, s, Vt = torch.linalg.svd(epipolar.as_matrix(e))
+    top, top_idx = run("essential_score", _essential_score,
+                       dict(threshold=threshold, top_k=top_k), U, s, Vt, x1, x2, mask)
+    U, _, Vt = torch.linalg.svd(top)
+    return run("essential_refine", _essential_refine,
+               dict(threshold=threshold, refine_iters=refine_iters), U, Vt, top_idx, x1, x2, mask)
+
+
+def _homography_system(idx, x1, x2):
+    return epipolar.homography_normal_matrix(x1[idx], x2[idx])
+
+
+def _refit_system(x1, x2, inl, refit):
+    """The next local-optimisation refit's system, weighted by the
+    inliers; None after the last."""
+    return epipolar.homography_normal_matrix(x1, x2, weights=inl.to(x1.dtype)) if refit else None
+
+
+def _homography_score(h, x1, x2, mask, *, threshold, refit):
+    """The hypotheses' inlier counts; the first best (H, inliers, count,
+    index) and the first refit's system."""
+    models = epipolar.homography_from_null(h)                 # (S, 3, 3)
+    res = epipolar.homography_residual(models, x1[None], x2[None])
+    inl = (res < threshold) & mask[None, :]
+    counts = torch.sum(inl, dim=-1)
+    best = torch.argmax(counts)
+    inl = row(inl, best)
+    return row(models, best), inl, row(counts, best), best, _refit_system(x1, x2, inl, refit)
+
+
+def _homography_refit(h, H, inl, n_inl, x1, x2, mask, *, threshold, refit):
+    """One local-optimisation step, kept when it does not lose inliers;
+    the next step's system."""
+    H_new = epipolar.homography_from_null(h)
+    inl_new = (epipolar.homography_residual(H_new, x1, x2) < threshold) & mask
+    better = torch.sum(inl_new) >= n_inl
+    H = torch.where(better, H_new, H)
+    inl = torch.where(better, inl_new, inl)
+    return H, inl, torch.sum(inl), _refit_system(x1, x2, inl, refit)
 
 
 def homography_ransac_from_indices(idx, x1, x2, mask, threshold: float = 1e-5,
-                                   lo_steps: int = 4):
+                                   lo_steps: int = 4, run=eager):
     """4-point DLT homography RANSAC over hypotheses idx (S, 4), then
     `lo_steps` local-optimisation refits on the inliers, each kept when it
-    does not lose inliers."""
-    out = ransac_from_indices(idx, x1, x2, mask, epipolar.fit_homography,
-                              epipolar.homography_residual, threshold)
-    H, inl, n_inl = out.model, out.inliers, out.num_inliers
-    for _ in range(lo_steps):
-        H_new = epipolar.fit_homography(x1, x2, weights=inl.to(x1.dtype))
-        inl_new = (epipolar.homography_residual(H_new, x1, x2) < threshold) & mask
-        better = torch.sum(inl_new) >= n_inl
-        H = torch.where(better, H_new, H)
-        inl = torch.where(better, inl_new, inl)
-        n_inl = torch.sum(inl)
-    return RansacResult(H, inl, n_inl, out.best_hypo)
+    does not lose inliers. `run` runs the segments between the solver
+    calls (`eager`)."""
+    h = epipolar.null_vector(run("homography_system", _homography_system, {}, idx, x1, x2))
+    H, inl, n_inl, best, AtA = run("homography_score", _homography_score,
+                                   dict(threshold=threshold, refit=lo_steps > 0), h, x1, x2, mask)
+    for i in range(lo_steps):
+        H, inl, n_inl, AtA = run("homography_refit", _homography_refit,
+                                 dict(threshold=threshold, refit=i + 1 < lo_steps),
+                                 epipolar.null_vector(AtA), H, inl, n_inl, x1, x2, mask)
+    return RansacResult(H, inl, n_inl, best)

@@ -4,6 +4,15 @@
 Disparity gate, essential and homography RANSAC, candidate
 decomposition, gated motion selection over a (candidates x
 correspondences) triangulation grid, and mean-depth normalization.
+
+`initialize` is the JAX package's one jitted program as segments between
+the calls that read the device on the host on CUDA: the two hypothesis
+draws from the caller's generator (first, in the reference's order, so
+the generator advances as it did and no graph holds it) and each `eigh`
+and `svd` of `geometry/epipolar.py`. Each segment runs through
+`run(name, fn, statics, *args)`: a plain call by default, a captured
+program in the monocular engine (`slam/engine.py`), with the same ops
+either way.
 """
 
 from __future__ import annotations
@@ -14,6 +23,7 @@ import numpy as np
 import torch
 
 from viso_tpu_torch.geometry import epipolar, triangulation
+from viso_tpu_torch.mapping.map_state import row
 from viso_tpu_torch.ops import ransac
 
 
@@ -66,51 +76,64 @@ def select_motion(x1, x2, mask, Rs, ts, params: TwoViewParams):
 
     counts = torch.sum(good, dim=-1)
     best = torch.argmax(counts)
-    R, t = Rs[best], ts[best]
-    inl = good[best]
-    pts = Xw[best]
+    R, t = row(Rs, best), row(ts, best)
+    inl = row(good, best)
+    pts = row(Xw, best)
     # Mean-depth normalization: the monocular scale fix.
     mean_depth = torch.sum(torch.where(inl, pts[:, 2], 0.0)) / torch.clamp(
         torch.sum(inl), min=1
     )
     scale = torch.where(mean_depth > 1e-9, 1.0 / mean_depth, 1.0)
-    ang = torch.rad2deg(torch.arccos(torch.clamp(cosang[best], -1.0, 1.0)))
+    ang = torch.rad2deg(torch.arccos(torch.clamp(row(cosang, best), -1.0, 1.0)))
     med_par = torch.nanquantile(torch.where(inl, ang, float("nan")), 0.5)
     med_par = torch.where(torch.isfinite(med_par), med_par, 0.0)
-    return R, t * scale, pts * scale, inl, counts[best], med_par
+    return R, t * scale, pts * scale, inl, row(counts, best), med_par
 
 
-def initialize_from_indices(idx_e, idx_h, x1, x2, mask,
-                            params: TwoViewParams = TwoViewParams()):
-    """Two-view initialization on normalized correspondences x1, x2 (N, 2)
-    with the RANSAC hypotheses given: idx_e (S, 8) for the essential
-    matrix, idx_h (S/2, 4) for the homography (ignored without
-    `use_homography`)."""
+def _select(U_e, Vt_e, svd_h, x1, x2, mask, *, params: TwoViewParams):
+    """The disparity gate, the candidate motions from the SVDs of E and
+    (with `use_homography`) H, and `select_motion`."""
     n_tracks = torch.sum(mask)
     # Disparity gate: mean squared pixel disparity >= thresh.
     disp_sq = torch.sum((x1 - x2) ** 2, dim=-1) * params.focal**2
     mean_disp = torch.sum(torch.where(mask, disp_sq, 0.0)) / torch.clamp(n_tracks, min=1)
     disparity_ok = mean_disp >= params.disparity_squared_thresh
-
-    # Sampson threshold in normalized units ~ (thresh_px / f)^2.
-    sampson_thresh = (params.projection_error_thresh / params.focal) ** 2 * 4.0
-    e_res = ransac.essential_ransac_from_indices(idx_e, x1, x2, mask, threshold=sampson_thresh)
-    Rs, ts = epipolar.decompose_essential(e_res.model)
-    if params.use_homography:
-        h_res = ransac.homography_ransac_from_indices(
-            idx_h, x1, x2, mask, threshold=sampson_thresh
-        )
-        Rs_h, ts_h, _ = epipolar.decompose_homography(h_res.model)
+    Rs, ts = epipolar.essential_candidates(U_e, Vt_e)
+    if svd_h:
+        Rs_h, ts_h, _ = epipolar.homography_candidates(*svd_h)
         Rs = torch.cat([Rs, Rs_h], dim=0)
         ts = torch.cat([ts, ts_h], dim=0)
     R, t, pts, inl, n_inl, med_par = select_motion(x1, x2, mask, Rs, ts, params)
     return TwoViewResult(R, t, pts, inl, n_inl, n_tracks, disparity_ok, med_par)
 
 
-def initialize(generator, x1, x2, mask, params: TwoViewParams = TwoViewParams()):
+def initialize_from_indices(idx_e, idx_h, x1, x2, mask,
+                            params: TwoViewParams = TwoViewParams(), *, run=ransac.eager):
+    """Two-view initialization on normalized correspondences x1, x2 (N, 2)
+    with the RANSAC hypotheses given: idx_e (S, 8) for the essential
+    matrix, idx_h (S/2, 4) for the homography (ignored without
+    `use_homography`). `run(name, fn, statics, *args)` runs the segments
+    between the solver calls: eagerly by default, or as captured programs
+    (`slam/programs.Cache.run`)."""
+    # Sampson threshold in normalized units ~ (thresh_px / f)^2.
+    sampson_thresh = (params.projection_error_thresh / params.focal) ** 2 * 4.0
+    e_res = ransac.essential_ransac_from_indices(idx_e, x1, x2, mask, threshold=sampson_thresh,
+                                                 run=run)
+    U_e, _, Vt_e = torch.linalg.svd(e_res.model)
+    svd_h = ()
+    if params.use_homography:
+        h_res = ransac.homography_ransac_from_indices(idx_h, x1, x2, mask,
+                                                      threshold=sampson_thresh, run=run)
+        svd_h = torch.linalg.svd(h_res.model)
+    return run("twoview_select", _select, dict(params=params), U_e, Vt_e, tuple(svd_h),
+               x1, x2, mask)
+
+
+def initialize(generator, x1, x2, mask, params: TwoViewParams = TwoViewParams(), *,
+               run=ransac.eager):
     """`initialize_from_indices` with the hypotheses drawn from `generator`:
     the essential matrix's first, then the homography's."""
     S = params.ransac_hypotheses
     idx_e = ransac.draw_indices(generator, mask, S, 8)
     idx_h = ransac.draw_indices(generator, mask, S // 2, 4)
-    return initialize_from_indices(idx_e, idx_h, x1, x2, mask, params)
+    return initialize_from_indices(idx_e, idx_h, x1, x2, mask, params, run=run)

@@ -17,6 +17,13 @@ exact, and it is one collective per solve, not per iteration.
 
 SPMD discipline: every rank must hold the same replicated problem and
 call the solver the same number of times in the same order.
+
+The solve is a program (`ShardedSolver.program`, the reference's
+`jax.jit(shard_map(ba.solve_impl))`) where its collectives can be
+captured in a CUDA graph: over NCCL, or with no group. Its first call is
+eager (on NCCL it makes the communicator a capture needs), its second
+captures, later calls replay. gloo's collectives cannot be captured, so
+over gloo the solver runs eagerly (`capturable`).
 """
 
 from __future__ import annotations
@@ -68,11 +75,20 @@ def psum_bytes_per_iter(num_cams: int, dtype_bytes: int = 4) -> int:
 PSUMS_PER_ITER = 2
 
 
+def capturable(mesh: Mesh) -> bool:
+    """Whether the sharded solve can be captured as a CUDA graph: with no
+    group (a world of one: nothing to reduce) or over NCCL, whose
+    collectives a graph holds; not over gloo."""
+    return mesh.group is None or dist.get_backend(mesh.group) == "nccl"
+
+
 @dataclass
 class CollectiveStats:
     """What the last solve handed to `all_reduce`: the bytes of each call
-    in order, CUDA events around each call on a CUDA group, and the bytes
-    of the one point gather (not an LM reduction, so not in `sizes`)."""
+    in order, CUDA events around each call of an eager solve on a CUDA
+    group (none in a captured one: a graph's events cannot be timed), and
+    the bytes of the one point gather (not an LM reduction, so not in
+    `sizes`)."""
 
     sizes: list = field(default_factory=list)
     events: list = field(default_factory=list)
@@ -107,6 +123,28 @@ class ShardedSolver:
         self.mesh = mesh
         self.params = params
         self.stats = CollectiveStats()
+        self._captured = None   # (sizes, gather bytes) of the captured solve
+
+    def program(self, capture_stream):
+        """This solver as a program (`slam/programs.Program`, named
+        `ba_solve`): eager at its first call, captured at its second on the
+        stream `capture_stream()` gives, replayed after; `stats` restored
+        from the capture after each replay. Raises over gloo."""
+        from viso_tpu_torch.slam import programs
+
+        if not capturable(self.mesh):
+            raise ValueError("the sharded solve over gloo cannot be captured: call the "
+                             "solver eagerly")
+        return programs.Program(self, self.mesh.device, name="ba_solve",
+                                capture_stream=capture_stream, counted=False,
+                                on_replay=self.replayed)
+
+    def replayed(self):
+        """After a replay of the captured solve: `stats` as the capture
+        recorded them (a replay runs no Python), with no events."""
+        sizes, gather_bytes = self._captured
+        self.stats.sizes, self.stats.events, self.stats.gather_bytes = (
+            list(sizes), [], gather_bytes)
 
     def reduce(self, tensors):
         """Sum `tensors` in place over the group: one flat buffer, one
@@ -115,7 +153,7 @@ class ShardedSolver:
         if self.mesh.group is None:
             return
         flat = torch.cat([x.reshape(-1) for x in tensors])
-        if flat.is_cuda:
+        if flat.is_cuda and not torch.cuda.is_current_stream_capturing():
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             dist.all_reduce(flat, group=self.mesh.group)
@@ -127,6 +165,8 @@ class ShardedSolver:
             x.copy_(part.view_as(x))
 
     def _gather(self, block, lo: int, L: int):
+        # Under a capture `full` comes from the graph's own memory pool: a
+        # static buffer of the program.
         if self.mesh.group is None:
             return block
         full = block.new_zeros((L,) + tuple(block.shape[1:]))
@@ -155,7 +195,10 @@ class ShardedSolver:
             point_mask=prob.point_mask[lo:hi],
         )
         out, info = ba.solve_impl(local, self.params, reduce=self.reduce)
-        return prob._replace(R=out.R, t=out.t, points=self._gather(out.points, lo, L)), info
+        out = prob._replace(R=out.R, t=out.t, points=self._gather(out.points, lo, L))
+        if prob.R.is_cuda and torch.cuda.is_current_stream_capturing():
+            self._captured = (list(self.stats.sizes), self.stats.gather_bytes)
+        return out, info
 
 
 @functools.lru_cache(maxsize=32)

@@ -26,7 +26,11 @@ reach the host through a non-blocking copy into pinned memory, consumed a
 fixed or opportunistic number of frames later (`stats_max_lag`,
 `stats_hard_lag`, `stats_deterministic`, as in the reference). The
 monocular bootstrap reads its gates on the host, as the reference does
-(`MonocularVO._try_initialize`). All shapes are static across frames.
+(`MonocularVO._try_initialize`): its init-chain LK (`init_track`) and
+the two-view initialization's segments run as programs of the engine's
+`programs.Cache`, eager at their first call and captured at their second,
+between the RANSAC draws and the two-view solvers' `eigh` and `svd`
+(`ops/twoview.py`). All shapes are static across frames.
 
 The engine state a program reads (the map, the pose, the previous pose,
 the velocity twist, the templates and their landmark subset) lives in
@@ -45,13 +49,15 @@ Distributed window BA (`distribute_ba`, north-star config 5): the
 window is solved landmark-sharded over the `torch.distributed` world
 (`parallel/dist_ba.py`): camera blocks replicated, landmarks and their
 Schur marginalization rank-local, the reduced camera system summed with
-`all_reduce`. The sharded solver runs eagerly (its collectives cannot be
-captured) between two programs, `ba_prep` (the problem, padded to the
-group) and `ba_finish` (the write-back and the adoption gate), the JAX
-engine's jitted prep and finish. Every other program runs replicated on
-each rank's own device. Each rank must make the same keyframe decisions,
-so a run of more than one rank needs `stats_deterministic` or
-`kf_min_gap == kf_max_gap`.
+`all_reduce`. It is three programs, the JAX engine's jitted prep, solve
+and finish: `ba_prep` (the problem, padded to the group), `ba_solve`
+(the sharded LM, eager at its first call, which makes the NCCL
+communicator, and captured at its second) and `ba_finish` (the
+write-back and the adoption gate). gloo's collectives cannot be
+captured: over gloo `ba_solve` runs eagerly, and `program_listing` says
+so. Every other program runs replicated on each rank's own device. Each
+rank must make the same keyframe decisions, so a run of more than one
+rank needs `stats_deterministic` or `kf_min_gap == kf_max_gap`.
 """
 
 from __future__ import annotations
@@ -71,8 +77,10 @@ from viso_tpu_torch.slam import programs
 # The engine programs: name -> the method that is the bare function.
 PROGRAMS = {"track": "_track", "templates": "_templates_program", "ba": "_ba_program",
             "stereo_kf": "_stereo_kf_program", "mono_kf": "_mono_kf_program"}
-# A distributed engine's window BA: two programs around the sharded solver.
-DIST_BA_PROGRAMS = {"ba_prep": "_ba_prep_program", "ba_finish": "_ba_finish_program"}
+# A distributed engine's window BA: the problem, the sharded solve and the
+# write-back (the solve eager over gloo: `dist_ba.capturable`).
+DIST_BA_PROGRAMS = {"ba_prep": "_ba_prep_program", "ba_solve": "_dist_ba_solve",
+                    "ba_finish": "_ba_finish_program"}
 
 
 @dataclass
@@ -280,6 +288,10 @@ class BaseVO:
                  self._templates, self._active_idx, self._cam_fixed)
         self._owned = frozenset(x.data_ptr() for x in programs.flatten(state)[0])
         self._kernels: dict[str, programs.Program] = {}
+        # Programs keyed by name and static shape (the monocular
+        # bootstrap's), and the stream of the captures that are not a
+        # program's first call (theirs and `ba_solve`'s).
+        self._cache = programs.Cache(self.device)
         self.last_kf_frame = -(10**9)
         self.kf_order: list[int] = []   # slots, oldest first
         self.results: list[FrameResult] = []
@@ -372,13 +384,32 @@ class BaseVO:
 
     def _program(self, name: str) -> programs.Program:
         """The engine's program `name` (`PROGRAMS`, `DIST_BA_PROGRAMS`),
-        captured at its first call on a CUDA engine and replayed after."""
+        captured at its first call on a CUDA engine and replayed after
+        (`ba_solve`: at its second, `ShardedSolver.program`)."""
         prog = self._kernels.get(name)
         if prog is None:
-            method = PROGRAMS.get(name) or DIST_BA_PROGRAMS[name]
-            prog = self._kernels[name] = programs.Program(getattr(self, method), self.device,
-                                                          self._owned)
+            if name == "ba_solve":
+                prog = self._sharded_solver().program(self._cache.capture_stream)
+            else:
+                method = PROGRAMS.get(name) or DIST_BA_PROGRAMS[name]
+                prog = programs.Program(getattr(self, method), self.device, self._owned)
+            self._kernels[name] = prog
         return prog
+
+    def program_listing(self) -> dict:
+        """How each program the engine has run so far runs: "graph" (a CUDA
+        graph, replayed), "eager (cpu)" (its static buffers on the CPU), or
+        for the sharded solve over gloo "eager (gloo)" (its collectives
+        cannot be captured)."""
+        mode = "graph" if self.device.type == "cuda" else "eager (cpu)"
+        listing = dict.fromkeys(self._kernels, mode)
+        listing.update((key[0], mode) for key in self._cache.programs)
+        if self.cfg.distribute_ba and getattr(self, "_ba_mesh", None) is not None:
+            from viso_tpu_torch.parallel import dist_ba
+
+            if not dist_ba.capturable(self._ba_mesh):
+                listing["ba_solve"] = "eager (gloo)"
+        return listing
 
     # -- device programs -----------------------------------------------
     def _track(self, m: map_state.MapState, templates, active, img, R, t, vel_xi):
@@ -568,12 +599,16 @@ class BaseVO:
         prob = map_state.as_ba_problem(m, self.intr)._replace(cam_fixed=cam_fixed)
         return dist_ba.pad_landmarks(prob, self._mesh().size)
 
-    def _dist_ba_solve(self, prob):
-        """The landmark-sharded LM over the group, eagerly: its collectives
-        cannot be captured."""
+    def _sharded_solver(self):
+        """The landmark-sharded LM over the group (one object per mesh and
+        parameters)."""
         from viso_tpu_torch.parallel import dist_ba
 
-        return dist_ba.make_sharded_solver(self._mesh(), self._reprojection_ba_params())(prob)
+        return dist_ba.make_sharded_solver(self._mesh(), self._reprojection_ba_params())
+
+    def _dist_ba_solve(self, prob):
+        """The landmark-sharded LM of `prob` over the group: (problem, info)."""
+        return self._sharded_solver()(prob)
 
     def _ba_finish_program(self, m: map_state.MapState, R, t, points, pose_slot: int, R0, t0):
         """The BA's solution written into the map, gated on the shift of
@@ -592,9 +627,13 @@ class BaseVO:
         for s in fixed_slots:
             cam_fixed[s].fill_(True)   # no host scalar copy (that syncs)
         if self.cfg.distribute_ba:
-            # The sharded solver's collectives cannot be captured: it runs
-            # eagerly between the captured prep and finish.
-            out, info = self._dist_ba_solve(self._program("ba_prep")(self.map, cam_fixed))
+            from viso_tpu_torch.parallel import dist_ba
+
+            prob = self._program("ba_prep")(self.map, cam_fixed)
+            if dist_ba.capturable(self._mesh()):
+                out, info = self._program("ba_solve")(prob)
+            else:   # gloo: its collectives cannot be captured
+                out, info = self._dist_ba_solve(prob)
             m, R, t = self._program("ba_finish")(self.map, out.R, out.t, out.points,
                                                  self.kf_order[-1], self.R, self.t)
             final_cost = info["final_cost"]
@@ -866,6 +905,7 @@ class MonocularVO(BaseVO):
         img = self.to_device(img)
 
         if self.state == "init":
+            # Op by op, as the reference builds it outside its programs.
             pyr = pyramid.build_pyramid(img.to(torch.float32), cfg.pyramid_levels)
             self._dead_reckon()
             self._try_initialize(pyr)
@@ -925,8 +965,12 @@ class MonocularVO(BaseVO):
         # through a short loss.
         self._scale_prior = self._recent_speed()
         self._depth_prior = self._map_median_depth()
-        # Constant-velocity dead reckoning through the blackout.
-        self._dr_fwd = self._recent_fwd()
+        # Constant-velocity dead reckoning through the blackout: the
+        # pre-loss increment on the device, copied once without waiting for
+        # it (`_dead_reckon` applies it at every frame of the blackout).
+        dr = self._recent_fwd()
+        self._dr_fwd = None if dr is None else tuple(
+            x.to(self.device, non_blocking=True) for x in programs.host_tensors(dr, self.device))
         self.map = map_state.empty(
             cfg.max_keyframes, cfg.max_landmarks, (cfg.height, cfg.width),
             cfg.pyramid_levels, device=self.device,
@@ -938,8 +982,7 @@ class MonocularVO(BaseVO):
         # Velocity filter: carry the pre-loss per-frame increment when one
         # exists (it also drives _dead_reckon), else reset.
         if self._dr_fwd is not None:
-            R_f, t_f = (torch.from_numpy(a).to(self.device) for a in self._dr_fwd)
-            self.vel_xi = se3.se3_log(R_f, t_f)
+            self.vel_xi = se3.se3_log(*self._dr_fwd)
         else:
             self.vel_xi = torch.zeros(6, dtype=torch.float32, device=self.device)
         self.init_ref = None
@@ -1001,7 +1044,7 @@ class MonocularVO(BaseVO):
         dr = getattr(self, "_dr_fwd", None)
         if dr is None or self.num_reinits == 0:
             return
-        R_f, t_f = (torch.from_numpy(a).to(self.device) for a in dr)
+        R_f, t_f = dr
         self.R = R_f @ self.R
         self.t = R_f @ self.t + t_f
 
@@ -1012,15 +1055,22 @@ class MonocularVO(BaseVO):
         the ref<->current correspondence set spans the accumulated
         baseline. The chain reseeds when it dies (fewer than
         min_init_tracks tracks) and otherwise at 4x reinitialize_after.
-        The gates are read on the host, as the reference reads them.
+        The gates are read on the host, as the reference reads them: the
+        track count, then the two-view gates. The chain's LK and the two-view
+        initialization run as programs of `self._cache` (`init_track`, the
+        segments of `ops/twoview.py`); the detection of a reseed runs op by
+        op, as in the reference. A tracked chain's keypoints and mask are
+        `init_track`'s outputs, read by its next call.
         """
         cfg = self.cfg
         ir = self.init_ref
         reseed = ir is None or (self.frame_idx - ir[4]) >= 4 * cfg.reinitialize_after
         if not reseed:
             ref_pyr, ref_kps, cur_kps, mask, ref_idx = ir
-            kp2, _, ok = lk.track(self.last_pyr, pyr, cur_kps, mask)
-            n_tracks = int(torch.sum(ok))
+            kp2, ok, n_tracks, x1, x2 = self._cache.run(
+                "init_track", self._init_track_program, {}, self.last_pyr, pyr, cur_kps, mask,
+                ref_kps, counted=True)
+            n_tracks = int(n_tracks)
             if n_tracks < cfg.min_init_tracks:
                 reseed = True
             else:
@@ -1032,15 +1082,13 @@ class MonocularVO(BaseVO):
             self.init_base = (self.R.clone(), self.t.clone())
             return
 
-        x1 = cam_mod.normalize(ref_kps, self.intr)
-        x2 = cam_mod.normalize(kp2, self.intr)
         params = twoview.TwoViewParams(
             focal=cfg.fx,
             projection_error_thresh=cfg.init_projection_error_px,
             parallax_thresh_deg=cfg.init_parallax_deg,
             disparity_squared_thresh=cfg.disparity_squared_thresh,
         )
-        res = twoview.initialize(self.generator, x1, x2, ok, params)
+        res = twoview.initialize(self.generator, x1, x2, ok, params, run=self._cache.run)
         disp_ok, n_inl, med_par = torch.stack([
             res.disparity_ok.to(torch.float32), res.num_inliers.to(torch.float32),
             res.median_parallax_deg,
@@ -1106,6 +1154,14 @@ class MonocularVO(BaseVO):
         self._refresh_templates(slot1)
         self.state = "tracking"
         self._post_keyframe(slot1, pyr)
+
+    def _init_track_program(self, pyr_prev, pyr, kps, mask, ref_kps):
+        """The init chain's step: LK from the previous frame, the tracks'
+        count and both ends' normalized coordinates. Returns (kps (N, 2),
+        ok (N,), n_tracks, x1 (N, 2) of `ref_kps`, x2 (N, 2))."""
+        kp2, _, ok = lk.track(pyr_prev, pyr, kps, mask)
+        return (kp2, ok, torch.sum(ok), cam_mod.normalize(ref_kps, self.intr),
+                cam_mod.normalize(kp2, self.intr))
 
     def _mono_kf_program(self, m, slot: int, do_evict: bool, prev_slot: int, R, t,
                          frame_id: int, pyr, ok_align, refined):

@@ -48,7 +48,7 @@ import torch
 from viso_tpu_torch.geometry import camera as cam_mod
 from viso_tpu_torch.geometry import se3, sim3
 from viso_tpu_torch.mapping.map_state import row
-from viso_tpu_torch.ops import descriptors, pnp
+from viso_tpu_torch.ops import descriptors, pnp, ransac
 from viso_tpu_torch.slam import programs as prog_mod
 
 # VISO_LOOP_DEBUG=1 prints every candidate's gate record to stderr.
@@ -316,16 +316,9 @@ class LoopDatabase:
         thresh = (p.pnp_threshold_px / float(intr.fx)) ** 2
         db = (self.desc, self.desc_mask, self.points_w_dev, self.points_ok_dev)
         eligible = prog_mod.host_tensors([eligible], self.device)[0]
-        packed = _detect(self._run, query, db, eligible, intr, thresh, p.min_matches,
+        packed = _detect(self.programs.run, query, db, eligible, intr, thresh, p.min_matches,
                          p.min_inliers, functools.partial(pnp.draw_hypotheses, self.generator))
         return packed.cpu().numpy()
-
-    def _run(self, name, fn, statics, *args):
-        """One detection segment as the program of its name, static
-        arguments and input shapes."""
-        shapes = tuple(tuple(x.shape) for x in prog_mod.flatten(args)[0])
-        key = (name, tuple(sorted(statics.items())), shapes)
-        return self.programs.get(key, functools.partial(fn, **statics))(*args)
 
     def _gate_packed(self, packed, R_cur, t_cur, path_len, rot_len,
                      seam_t=None, seam_r=None):
@@ -514,10 +507,6 @@ def _umeyama_stage(U, D, Vt, moments, is_cand, packed16):
     return torch.cat([packed16, s_g[None], R_g.reshape(-1), t_g])
 
 
-def _eager(name, fn, statics, *args):
-    return fn(*args, **statics)
-
-
 def _detect(run, query, db, eligible, intr, thresh, min_matches, min_inliers, draw):
     """The device side of a detection: segments (`run(name, fn, statics,
     *args)`: eagerly, or as captured programs) between the calls that
@@ -571,7 +560,8 @@ def _detect_fused_kernel(desc_q, mask_q, kps_q, desc_db, mask_db, pts_db,
     """The whole device side of a detection, eagerly (`_detect`). Returns
     the 16-float packed vector [best_matches, best_slot,
     n_matched_with_3d, pnp_inliers, R(9), t(3)]."""
-    return _detect(_eager, (desc_q, mask_q, kps_q), (desc_db, mask_db, pts_db, pts_ok_db),
+    return _detect(ransac.eager, (desc_q, mask_q, kps_q),
+                   (desc_db, mask_db, pts_db, pts_ok_db),
                    eligible, intr, thresh, min_matches, min_inliers, draw)
 
 
@@ -586,6 +576,6 @@ def _detect_fused_sim3_kernel(desc_q, mask_q, kps_q, pts_q, pts_q_ok, R_cur, t_c
     points in the same camera, in two scales). Packed: [matches, slot,
     n3d, inliers, R_pnp(9), t_pnp(3), s_g, R_g(9), t_g(3)] (29 floats);
     (1, I, 0) for the fit without a candidate."""
-    return _detect(_eager, (desc_q, mask_q, kps_q, pts_q, pts_q_ok, R_cur, t_cur),
+    return _detect(ransac.eager, (desc_q, mask_q, kps_q, pts_q, pts_q_ok, R_cur, t_cur),
                    (desc_db, mask_db, pts_db, pts_ok_db), eligible, intr, thresh,
                    min_matches, min_inliers, draw)

@@ -55,6 +55,7 @@ copied on, when the block is freed) would join the graph.
 
 from __future__ import annotations
 
+import functools
 import threading
 
 import torch
@@ -69,12 +70,14 @@ _SCALAR_DTYPES = {bool: torch.bool, int: torch.int64, float: torch.float32}
 
 
 def flatten(tree):
-    """(leaves, spec) of nested tuples, named tuples and lists."""
+    """(leaves, spec) of nested tuples, named tuples, lists and dicts."""
     leaves = []
 
     def walk(x):
         if isinstance(x, (tuple, list)):
             return type(x), tuple(walk(v) for v in x)
+        if isinstance(x, dict):
+            return dict, tuple((k, walk(v)) for k, v in x.items())
         leaves.append(x)
         return None
 
@@ -88,6 +91,8 @@ def unflatten(spec, leaves):
         if s is None:
             return next(it)
         kind, kids = s
+        if kind is dict:
+            return {k: build(v) for k, v in kids}
         vals = [build(k) for k in kids]
         return kind(vals) if kind in (tuple, list) else kind(*vals)
 
@@ -133,11 +138,14 @@ class Program:
     WARMUP_CALLS there); counted: whether a capture measures `COUNTERS`
     (a program that holds no counted kernel and is captured while another
     thread launches one must not, or it would take that thread's launches
-    back)."""
+    back); on_replay: called after each replay, for Python-side records
+    that the function keeps and a replay does not run
+    (`parallel/dist_ba.ShardedSolver.replayed`)."""
 
     def __init__(self, fn, device, owned=frozenset(), *, name=None, capture_stream=None,
-                 counted=True):
+                 counted=True, on_replay=None):
         self.fn = fn
+        self.on_replay = on_replay
         self.name = name or getattr(fn, "__name__", type(fn).__name__)
         self.device = torch.device(device)
         self.owned = owned
@@ -175,6 +183,8 @@ class Program:
     def _replayed(self):
         self.replays += 1
         add_counts(self.counts)
+        if self.on_replay is not None:
+            self.on_replay()
 
     def _stage(self, args):
         leaves, spec = flatten(args)
@@ -212,7 +222,11 @@ class Program:
         if isinstance(x, torch.Tensor):
             if x.data_ptr() in self.owned:
                 return x
-            if x.device != self.device:   # host memory: the program's own copy
+            # Always the program's own copy: `x.to(device)` returns `x`
+            # itself when `x` lies there already (an argument on "cuda:0" of
+            # a program made for "cuda"), and the caller's tensor would
+            # become the program's buffer.
+            if x.device.type != self.device.type:   # host memory
                 return x.to(self.device, non_blocking=True)
             return x.clone()
         if x is None:
@@ -262,6 +276,16 @@ class Cache:
                                                 capture_stream=self.capture_stream,
                                                 counted=counted)
         return prog
+
+    def run(self, name, fn, statics, *args, counted=False):
+        """`fn(*args, **statics)` through the program of its name, static
+        arguments and argument shapes: the `run(name, fn, statics, *args)`
+        of a function split into segments between the calls that read the
+        device on the host (`ops/ransac.py`, `ops/twoview.py`,
+        `slam/loop_closure._detect`)."""
+        shapes = tuple(tuple(x.shape) for x in flatten(args)[0])
+        key = (name, tuple(sorted(statics.items())), shapes)
+        return self.get(key, functools.partial(fn, **statics), counted=counted)(*args)
 
     def capture_stream(self):
         """The stream the calling thread's captures use, made at its first

@@ -7,10 +7,14 @@
 For each world size, spawns that many ranks (`multiprocess_ba.launch`)
 that solve the same C x L window landmark-sharded, and prints one JSON
 line from rank 0: LM iterations/s (host clock over solves that end in a
-synchronise), the bytes and calls handed to `all_reduce` per LM
-iteration beside `dist_ba.psum_bytes_per_iter`, the all-reduce stream time
-per iteration (CUDA events; "not measured" on the CPU), landmarks per
-rank and the final cost.
+synchronise) of the solve as the engine runs it (`timed`: a replayed CUDA
+graph over NCCL, `ShardedSolver.program`, as the reference times its
+jitted solve; eager over gloo, whose collectives cannot be captured; eager
+on the CPU) and of eager calls (`eager_lm_iters_per_s`), the bytes and
+calls handed to `all_reduce` per LM iteration beside
+`dist_ba.psum_bytes_per_iter`, the all-reduce stream time per iteration
+(CUDA events around the eager solves' calls; "not measured" on the CPU),
+landmarks per rank and the final cost.
 
 Backend: NCCL where every rank has a card of its own, else gloo. On one
 card, ranks beyond the first share it (gloo on CUDA tensors) and the line
@@ -76,33 +80,58 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _time(solve, prob, device, warm: int = 1):
+    """(seconds per solve, the last result): `warm` calls, then REPS timed
+    ones ending in a synchronise."""
+    for _ in range(warm):
+        solve(prob)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        out = solve(prob)
+    _sync(device)
+    return (time.perf_counter() - t0) / REPS, out
+
+
 def rank_bench(device, C: int, L: int, iters: int):
-    """One rank: a warm sharded solve, then REPS timed ones. Returns the
-    rank's numbers and its solution (numpy)."""
+    """One rank: the sharded solve as the engine runs it (`ba_solve`, a
+    program where it can be captured), then eagerly, each a warm call and
+    REPS timed ones. Returns the rank's numbers and its solution (numpy)."""
     import torch.distributed as dist
 
     from viso_tpu_torch.backend import ba
     from viso_tpu_torch.parallel import dist_ba, mesh as mesh_mod
+    from viso_tpu_torch.slam import programs
 
-    prob = build_problem(C, L, device)
     params = ba.BAParams(iters=iters, num_fixed=2)
     mesh = mesh_mod.make_mesh(device=device)
+    prob = dist_ba.pad_landmarks(build_problem(C, L, device), mesh.size)
     solver = dist_ba.make_sharded_solver(mesh, params)
-    dist_ba.solve_sharded(prob, params, mesh)
-    _sync(device)
-    t0 = time.perf_counter()
-    for _ in range(REPS):
-        out, info = dist_ba.solve_sharded(prob, params, mesh)
-    _sync(device)
-    dt = (time.perf_counter() - t0) / REPS
+    if dist_ba.capturable(mesh):
+        program = solver.program(programs.Cache(device).capture_stream)
+        timed = "replayed CUDA graph" if program.graphed else "eager (cpu)"
+        # Two warm calls: the program's first is eager, its second captures.
+        dt, (out_p, info_p) = _time(program, prob, device, warm=2)
+        out_p = [x.clone() for x in (out_p.R, out_p.t, out_p.points, info_p["final_cost"])]
+    else:
+        timed, out_p = "eager (gloo)", None
+    # Eager last: its CUDA events time the all-reduces.
+    dt_eager, (out, info) = _time(solver, prob, device)
+    if out_p is None:
+        dt, same = dt_eager, None
+    else:
+        same = all(torch.equal(a, b) for a, b in zip(
+            out_p, (out.R, out.t, out.points, info["final_cost"])))
     calls, nbytes, ms = solver.stats.per_iter(iters)
     return {
         "rank": mesh.rank, "world": mesh.size, "backend": dist.get_backend(),
-        "lm_iters_per_s": iters / dt,
+        "lm_iters_per_s": iters / dt, "timed": timed, "eager_lm_iters_per_s": iters / dt_eager,
+        "replay_equal": same,
         "allreduce_bytes_per_iter": nbytes, "allreduce_calls_per_iter": calls,
         "allreduce_ms_per_iter": ms, "landmarks_per_rank": (L + mesh.size - 1) // mesh.size,
         "final_cost": float(info["final_cost"]), "initial_cost": float(info["initial_cost"]),
-        "R": out.R.cpu().numpy(), "t": out.t.cpu().numpy(), "points": out.points.cpu().numpy(),
+        "R": out.R.cpu().numpy(), "t": out.t.cpu().numpy(),
+        "points": out.points[:L].cpu().numpy(),
     }
 
 
@@ -128,7 +157,8 @@ def run_world(world: int, device, C: int, L: int, iters: int, timeout: float = 3
         "world": world, "backend": backend,
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "cams": C, "landmarks": L, "iters": iters,
-        "lm_iters_per_s": r0["lm_iters_per_s"],
+        "lm_iters_per_s": r0["lm_iters_per_s"], "timed": r0["timed"],
+        "eager_lm_iters_per_s": r0["eager_lm_iters_per_s"], "replay_equal": r0["replay_equal"],
         "allreduce_bytes_per_iter": r0["allreduce_bytes_per_iter"],
         "psum_bytes_per_iter": dist_ba.psum_bytes_per_iter(C),
         "allreduce_calls_per_iter": r0["allreduce_calls_per_iter"],

@@ -8,31 +8,32 @@ Times `ba.solve_impl` on one device at two landmark counts
 (`bench_dist_ba.build_problem`) and fits T_iter(L) = a * L + b: a * L is
 the work that splits across landmark shards, b the replicated work (the
 reduced camera solve, damping, the accept logic). Each count: one warm
-solve, then 10 back to back ending in one synchronise. Prints one JSON
-line. The fit describes this device only; nothing here models another
-one.
+solve, then 10 back to back ending in one synchronise
+(`bench_ba.time_solves`), through a `slam/programs.Program` (on the card
+a replayed CUDA graph, as the reference times its jitted solve: the fit
+and `t_iter_s`), and eagerly (`eager_t_iter_s`). Prints one JSON line.
+The fit describes this device only; nothing here models another one.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
-import time
 
 import torch
 
 
-def _time_solve(prob, params, reps: int = 10) -> float:
+def _time_solve(prob, params, reps: int = 10):
+    """(replayed, eager) seconds per solve."""
     from viso_tpu_torch.backend import ba
+    from viso_tpu_torch.slam import programs
+    from viso_tpu_torch.tools.bench_ba import time_solves
 
-    out, info = ba.solve_impl(prob, params)
-    float(info["final_cost"])
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        out, info = ba.solve_impl(prob, params)
-    float(info["final_cost"])
-    return (time.perf_counter() - t0) / reps
+    solve = functools.partial(ba.solve_impl, params=params)
+    program = programs.Program(solve, prob.R.device, name="ba_solve")
+    return time_solves(program, prob, reps)[0], time_solves(solve, prob, reps)[0]
 
 
 def main(argv=None) -> int:
@@ -50,8 +51,8 @@ def main(argv=None) -> int:
         raise RuntimeError(f"--device {args.device}: no CUDA device (pass --device cpu)")
     params = ba.BAParams(iters=args.iters, num_fixed=2)
     L1, L2 = args.landmarks
-    t1 = _time_solve(build_problem(args.cams, L1, device), params)
-    t2 = _time_solve(build_problem(args.cams, L2, device), params)
+    (t1, e1), (t2, e2) = (_time_solve(build_problem(args.cams, L, device), params)
+                          for L in (L1, L2))
     it1, it2 = t1 / args.iters, t2 / args.iters
     a = max((it1 - it2) / (L1 - L2), 0.0)
     b = max(it2 - a * L2, 0.0)
@@ -59,7 +60,9 @@ def main(argv=None) -> int:
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "cams": args.cams,
         "iters": args.iters,
+        "timed": "replayed CUDA graph" if device.type == "cuda" else "eager (cpu)",
         "t_iter_s": {str(L1): it1, str(L2): it2},
+        "eager_t_iter_s": {str(L1): e1 / args.iters, str(L2): e2 / args.iters},
         "a_s_per_lm_iter": a,
         "b_s_per_iter": b,
     }))

@@ -241,7 +241,8 @@ def dryrun_slam(device, **kw):
 
 def engine_rank(device):
     """One rank of --engine: the single-rank and the distributed StereoVO
-    run. Returns centres, ATEs and K1's launches (CUDA only)."""
+    run. Returns centres, ATEs, K1's launches (CUDA only) and how the
+    distributed run's solve ran (`program_listing`)."""
     from viso_tpu_torch.geometry import extract
     from viso_tpu_torch.slam.engine import StereoVO
     from viso_tpu_torch.utils import metrics
@@ -254,11 +255,11 @@ def engine_rank(device):
             vo.process(il, ir)
         R_est, t_est = vo.trajectory()
         vo.close()
-        return metrics.camera_centers(R_est, t_est)
+        return metrics.camera_centers(R_est, t_est), vo.program_listing().get("ba_solve")
 
-    c_single = run()
+    c_single, _ = run()
     extract.launch.launches = 0
-    c_dist = run(distribute_ba=True)
+    c_dist, ba_solve = run(distribute_ba=True)
     launches = extract.launch.launches
     c_gt = metrics.camera_centers(Rs, ts)
     return {
@@ -267,6 +268,7 @@ def engine_rank(device):
         "ate_single": metrics.ate_rmse(c_single, c_gt, align=True, with_scale=False),
         "ate_dist": metrics.ate_rmse(c_dist, c_gt, align=True, with_scale=False),
         "max_diff": float(np.abs(c_single - c_dist).max()), "k1_launches": launches,
+        "ba_solve": ba_solve,
     }
 
 
