@@ -48,8 +48,9 @@ raises and exits non-zero:
      join(). 500 finite poses, no hook errors, at least one loop, ATE
      (no scale alignment) below 0.15 m, and K1 launched during the run;
      the pose-graph solves (accepted of run) and their ms each on the
-     worker; the programs captured and the bytes of their CUDA graphs'
-     memory pools; the loop funnel (`tools/diag_loops.Funnel`: keyframes, queries,
+     worker, eager or replayed, and the ms of each capture the worker
+     asked for, made on the dispatch thread inside an engine call; the
+     programs captured and the bytes of their CUDA graphs' memory pools; the loop funnel (`tools/diag_loops.Funnel`: keyframes, queries,
      eligible, matches, 3-D, PnP inliers, drift gate, loops) printed, each
      stage at most the one before and the last the run's loops;
   7. MonocularVO at the reference's mono configuration (`bench.py:
@@ -77,7 +78,8 @@ raises and exits non-zero:
      median per frame), the join time, keyframes, nodes, re-inits, each
      loop (from, to, inliers, s_rel, and the ratio ground truth implies),
      the range of node scales, the pose-graph solves (accepted of run) and
-     their ms each on the worker, the programs captured and their graph
+     their ms each on the worker with the worker's captures as phase 6's,
+     the programs captured and their graph
      pools' bytes, the scale-aligned keyframe ATE after
      the Sim(3) correction and raw, K1 launches by call site; then each
      loop detection again on the card from the run's inputs and
@@ -109,7 +111,17 @@ raises and exits non-zero:
      1e-5 m of the same run without distribute_ba, K1 launched; (d)
      `multiprocess_ba --engine`'s StereoVO over 2 gloo ranks on the card,
      each within 0.05 m of its single-rank run, ATEs below 0.08 m, ranks
-     equal, K1 launched, the solve run "eager (gloo)";
+     equal, K1 launched, the solve run "eager (gloo)"; (e) phase 6's cell
+     (the 500-frame orbit at 184x616, 256 features, 1024 landmarks)
+     with distribute_ba and stats_deterministic at world size 1 and over
+     2 gloo ranks sharing the card, rank 0 synchronising the whole device
+     after every `process()` call: per run frames/s (mean and median per
+     call), loops, ATE below 0.15 m, no hook error, K1 launched; the
+     ranks' raw trajectories equal, their corrected centres within
+     DIST_CELL_RANK_GAP_M, each within DIST_CELL_BAND_M of world 1's;
+     (f) `run.main(["--distribute", "--mode", "mono-slam", ...])` on the
+     CLI's synthetic run over 2 gloo ranks: tracking reached, the ranks'
+     trajectories equal, ATE below 2.0 m, no hook error, K1 launched;
  11. the stats-delay scenario and the diagnostic and profiling tools
      (`viso_tpu_torch/tools/`): (a) tests/test_torch_stats_stress.py's
      corridor with every stats sample delayed 0-10 frames (rng 3, 60
@@ -142,12 +154,14 @@ raises and exits non-zero:
      host enqueue ms, device ms and kernels, replayed and eager;
  13. the SLAM loop layer's programs (`slam/programs.Cache`): StereoSLAM
      on phase 6's cell and MonoSLAM on phase 9's, each until every
-     detection segment has had 2 + REPLAY_CHECKS calls, then as many
-     solves of the run's last graph (its node estimates moved by seeded
-     noise) through the program of its bucket on the worker: the calls 3
-     to 2 + REPLAY_CHECKS of the keyframe digest and of each detection
-     segment (the graphs between the draw, `eigh` and `svd`), and the
-     first REPLAY_CHECKS of those solves that replay, held against an
+     detection segment has had REPLAY_CHECKS checked replays, then 2 +
+     REPLAY_CHECKS solves of the run's last graph (its node estimates
+     moved by seeded noise) through the program of its bucket on the
+     worker, each followed by `join()`: the first REPLAY_CHECKS replays
+     of the keyframe digest and of each detection segment (the graphs
+     between the draw, `eigh` and `svd`; the worker's captured on the
+     dispatch thread at the drain after it asked), and the first
+     REPLAY_CHECKS of those solves that replay, held against an
      eager call of the bare function on the same
      inputs, bit for bit (the solves, whose scatter-adds use atomics,
      within LOOP_SOLVE_TOL), with new outputs at new inputs and the
@@ -272,6 +286,23 @@ DIST_CAMS, DIST_LANDMARKS, DIST_ITERS = 16, 65536, 10
 DIST_R_TOL, DIST_T_TOL, DIST_P_TOL, DIST_COST_RTOL, DIST_COST_ATOL = 1e-4, 1e-3, 1e-2, 1e-3, 1e-9
 DIST_SLAM_GAP_M = 1e-5
 DIST_SPAWN_TIMEOUT_S = 120.0
+# Phase 10(e): the 500-frame loop SLAM cell with distribute_ba and
+# stats_deterministic over DIST_CELL_RANKS gloo ranks sharing the card, and
+# at world size 1. The ranks' raw trajectories must be equal. Their
+# corrected camera centres within DIST_CELL_RANK_GAP_M of each other: each
+# rank solves its own pose graphs, which accumulate with atomics (an H100
+# read 9.61e-05 and 1.17e-04 m). Each rank's centres, raw and corrected,
+# within DIST_CELL_BAND_M of the world-1 run's: the sharded window BA sums
+# the ranks' halves in another order than one rank sums the whole, so its
+# LM iterates part from one rank's (phase (b): points up to 2.15e-3 m off
+# the single solve), and the orbit carries that on as drift of the cell's
+# own size (an H100 read 0.141 m raw and 0.137 m corrected, the raw
+# centres first 1 mm apart at frame 16, the ranks' ATE 0.0626 m against
+# world 1's 0.0797 m).
+DIST_CELL_RANKS = 2
+DIST_CELL_RANK_GAP_M = 1e-3
+DIST_CELL_BAND_M = 0.2
+DIST_CELL_TIMEOUT_S = 600.0
 # Phase 11: tests/test_torch_stats_stress.py's corridor and its ATE bound
 # under random stats delays; diag_drift's frames on the loop orbit;
 # diag_track_bias's frames held on the CPU and the step gap allowed (the
@@ -567,37 +598,34 @@ def render_orbit(synthetic):
 
 def dispatch_stream(torch, dev):
     """The stream a SLAM run's frames are enqueued on. Its timed windows end
-    in a synchronise of this stream alone: a device-wide synchronise while
-    the loop layer's worker captures a program on its own stream is refused
-    ("operation not permitted when stream is capturing") and breaks that
-    capture."""
+    in a synchronise of this stream alone: they time the frames, not the
+    loop worker's work still in flight on the worker's stream."""
     return torch.cuda.current_stream(dev)
 
 
 class SolveTimer:
     """The pose-graph solves of a SLAM run on its worker thread: their
     host time (each ends in the copy of its result to the host), what
-    each was (the eager first call at its bucket, the capture, or a
-    replay) and the ones the health gate accepts (each stores its
-    solution)."""
+    each was (eager: a bucket's first call, or one before its capture is
+    in place; or a replay) and the ones the health gate accepts (each
+    stores its solution); and the loop programs' captures, which the
+    dispatch thread makes inside engine calls (`programs.Cache.drain`)."""
 
     def __init__(self, slam):
         self.times, self.kinds, self.accepted = [], [], []
+        self.captures = slam._loop_programs.captures
         real_solve, real_store = slam._solve, slam._store_solution
 
-        def state():
-            progs = [p for k, p in slam._loop_programs.programs.items()
-                     if k[0].startswith("pose_graph")]
-            return len(progs), sum(p.graph is not None for p in progs)
+        def replays():
+            return sum(p.replays for k, p in slam._loop_programs.programs.items()
+                       if k[0].startswith("pose_graph"))
 
         def timed_solve(*a):
-            before = state()
+            before = replays()
             t = time.perf_counter()
             out = real_solve(*a)
             self.times.append(time.perf_counter() - t)
-            after = state()
-            self.kinds.append("eager" if after[0] > before[0]
-                              else "capture" if after[1] > before[1] else "replay")
+            self.kinds.append("replay" if replays() > before else "eager")
             return out
 
         def counted_store(*a):
@@ -610,8 +638,11 @@ class SolveTimer:
         ms = [1e3 * t for t in self.times]
         shown = ", ".join(f"{k} {v:.3f}" for k, v in zip(self.kinds, ms))
         mean = float(np.mean(ms)) if ms else float("nan")
+        caps = ", ".join(f"{name} {1e3 * sec:.3f}" for name, sec in self.captures)
         return (f"{label}: {len(ms)} pose-graph solves ({len(self.accepted)} accepted), mean "
-                f"{mean:.3f} ms per solve (worker thread, host clock; each: {shown}) [{card}]")
+                f"{mean:.3f} ms per solve (worker thread, host clock; each: {shown}); "
+                f"{len(self.captures)} captures the worker asked for, made on the dispatch "
+                f"thread inside engine calls (ms each: {caps}) [{card}]")
 
 
 def graph_pools(torch, slam):
@@ -1407,7 +1438,9 @@ def dist_phase(torch, extract, dev, card):
 
                 def counted(*a, _run=run_ba, _calls=ba_calls):
                     # Each window BA alone on the host clock, the card idle
-                    # before it and after it.
+                    # before it and after it: device-wide synchronises while
+                    # the loop worker runs, which meet no capture (the
+                    # dispatch thread makes them all).
                     torch.cuda.synchronize()
                     t_ba = time.perf_counter()
                     out = _run(*a)
@@ -1667,11 +1700,11 @@ def programs_phase(torch, extract, headline, mono_frames, dev, card):
 
 class LoopReplayCheck:
     """Phase 13. Wraps the programs a SLAM engine's loop layer makes
-    (`slam/programs.Cache`, on whichever thread calls them): calls 3 to
-    2 + REPLAY_CHECKS of each (replays of its captured graph: a cached
-    program runs eagerly at its first call and captures at its second),
-    or of a solve the first REPLAY_CHECKS that replay once `check_solves`
-    is set, are each preceded by an eager call of its bare function on
+    (`slam/programs.Cache`, on whichever thread calls them): the first
+    REPLAY_CHECKS calls of each that replay its captured graph (a cached
+    program runs eagerly at its first call and captures at its second on
+    the dispatch thread; the worker's run eagerly until a drain made
+    their capture), of a solve once `check_solves` is set, are each preceded by an eager call of its bare function on
     the same staged inputs. The digest and the detection's segments are held
     against it bit for bit (neither accumulates with atomics); a solve
     within LOOP_SOLVE_TOL, since its scatter-adds (`index_add_`) use
@@ -1699,8 +1732,8 @@ class LoopReplayCheck:
     def label(key):
         return f"{key[0]} {key[1]}x{key[2]}" if key[0].startswith("pose_graph") else key[0]
 
-    def calls(self, name):
-        return max((p.calls for k, p in self.cache.programs.items() if k[0] == name), default=0)
+    def checked(self, name):
+        return sum(r["name"] == name for r in self.rows)
 
     def get(self, key, fn, **kw):
         prog = self.real_get(key, fn, **kw)
@@ -1708,13 +1741,11 @@ class LoopReplayCheck:
 
         def call(*args):
             self.args[name] = (prog, args)
-            if key[0].startswith("pose_graph"):
-                # The solves driven after the run (`drive_solves`), the
-                # first REPLAY_CHECKS that replay.
-                check = (self.check_solves and prog.calls >= 2
-                         and sum(r["name"] == name for r in self.rows) < REPLAY_CHECKS)
-            else:
-                check = 2 <= prog.calls <= 1 + REPLAY_CHECKS
+            # The first REPLAY_CHECKS calls that replay (the worker's
+            # programs replay once a drain made their capture); of a solve,
+            # those driven after the run (`drive_solves`).
+            check = (prog.graph is not None and self.checked(name) < REPLAY_CHECKS
+                     and (self.check_solves or not key[0].startswith("pose_graph")))
             if not check:
                 return prog(*args)
             prog._stage(args)
@@ -1759,37 +1790,39 @@ def drive_solves(torch, slam, mono, n):
     """n solves of the run's last graph through the loop layer's program of
     its bucket, on the worker's thread and stream, each from the node
     estimates moved by seeded noise (0.01 rad, 0.01 m), then one more
-    under `set_sync_debug_mode("error")`. Returns the final costs."""
+    under `set_sync_debug_mode("error")`; `join()` after each, which makes
+    a capture the worker asked for. Returns the final costs."""
     from viso_tpu_torch.backend import pose_graph, pose_graph_sim3
     from viso_tpu_torch.data.synthetic import so3_exp
 
-    def task():
-        rng = np.random.default_rng(0)
-        costs = []
-        with torch.cuda.stream(slam._loop_stream):
-            for k in range(n + 1):
-                R = [so3_exp(rng.normal(0, 0.01, 3)).astype(np.float32) @ r for r in slam.pg_R]
-                t = [v + rng.normal(0, 0.01, 3).astype(np.float32) for v in slam.pg_t]
-                check = k == n
-                if check:
-                    torch.cuda.synchronize()
-                    torch.cuda.set_sync_debug_mode("error")
-                try:
-                    if mono:
-                        _, info = pose_graph_sim3.solve_padded(
-                            slam.pg_s, R, t, slam.pg_edges, pose_graph_sim3.PGParams(iters=25),
-                            device=slam.device, programs=slam._loop_programs)
-                    else:
-                        _, info = pose_graph.solve_padded(
-                            R, t, slam.pg_edges, pose_graph.PGParams(iters=25),
-                            device=slam.device, programs=slam._loop_programs)
-                finally:
-                    if check:
-                        torch.cuda.set_sync_debug_mode(0)
-                costs.append(float(info["final_cost"]))
-        return costs
+    rng = np.random.default_rng(0)
 
-    return slam._hook_pool.submit(task).result()
+    def task(R, t, check):
+        with torch.cuda.stream(slam._loop_stream):
+            if check:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                if mono:
+                    _, info = pose_graph_sim3.solve_padded(
+                        slam.pg_s, R, t, slam.pg_edges, pose_graph_sim3.PGParams(iters=25),
+                        device=slam.device, programs=slam._loop_programs)
+                else:
+                    _, info = pose_graph.solve_padded(
+                        R, t, slam.pg_edges, pose_graph.PGParams(iters=25),
+                        device=slam.device, programs=slam._loop_programs)
+            finally:
+                if check:
+                    torch.cuda.set_sync_debug_mode(0)
+            return float(info["final_cost"])
+
+    costs = []
+    for k in range(n + 1):
+        R = [so3_exp(rng.normal(0, 0.01, 3)).astype(np.float32) @ r for r in slam.pg_R]
+        t = [v + rng.normal(0, 0.01, 3).astype(np.float32) for v in slam.pg_t]
+        costs.append(slam._hook_pool.submit(task, R, t, k == n).result())
+        slam.join()
+    return costs
 
 
 def sync_error_digest(torch, slam):
@@ -1813,9 +1846,9 @@ def sync_error_digest(torch, slam):
 def loop_programs_phase(torch, extract, orbit, dev, card):
     """Phase 13. The SLAM loop layer's programs: StereoSLAM on phase 6's
     cell and MonoSLAM on phase 9's, each until every detection segment has
-    had 2 + REPLAY_CHECKS calls (`LoopReplayCheck`), then 2 + REPLAY_CHECKS
-    solves of the run's last graph through the program of its bucket on
-    the worker; a keyframe hook's digest on the dispatch thread and a
+    had REPLAY_CHECKS checked replays (`LoopReplayCheck`), then 2 +
+    REPLAY_CHECKS solves of the run's last graph through the program of
+    its bucket on the worker; a keyframe hook's digest on the dispatch thread and a
     solve on the worker under `set_sync_debug_mode("error")`; then each
     program's host, device ms and kernels, replayed and eager."""
     from viso_tpu_torch.geometry import extract as k1
@@ -1846,7 +1879,7 @@ def loop_programs_phase(torch, extract, orbit, dev, card):
                 n += 1
                 if n % 16 == 0 and slam._hook_last is not None:
                     slam._hook_last.result()    # the worker, caught up
-                    if min(checker.calls(d) for d in detect) >= 2 + REPLAY_CHECKS:
+                    if min(checker.checked(d) for d in detect) >= REPLAY_CHECKS:
                         break
             slam.join()
             if slam.hook_errors:
@@ -2160,7 +2193,7 @@ def bootstrap_phase(torch, extract, mono_frames, dev, card):
                                 world_size=1, timeout=datetime.timedelta(seconds=60))
         try:
             solver = dist_ba.ShardedSolver(mesh_mod.make_mesh(device=dev), params)
-            program = solver.program(programs.Cache(dev).capture_stream)
+            program = solver.program(programs.Cache(dev))
             equal = []
             for _ in range(2 + REPLAY_CHECKS):
                 out, info = program(prob)
@@ -2200,6 +2233,109 @@ def bootstrap_phase(torch, extract, mono_frames, dev, card):
         raise AssertionError(f"(b): equal {equal}, replays {replays}, "
                              f"calls {calls} bytes {nbytes}")
     return launches
+
+
+def dist_slam_phase(torch, orbit, Rs, ts, dev, card):
+    """Phase 10(e). The 500-frame loop SLAM cell's configuration
+    (`diag_loops.stereo_config()`, `LoopParams(min_inliers=40,
+    max_correction_m=4.0)`) with distribute_ba and stats_deterministic on
+    phase 6's orbit: at world size 1 in this process, then over
+    DIST_CELL_RANKS spawned gloo ranks sharing the card
+    (`multiprocess_ba.slam_rank`), rank 0 synchronising the whole device
+    after every `process()` call while its loop worker runs. Returns K1's
+    launches (every run)."""
+    import dataclasses
+
+    from viso_tpu_torch.slam.loop_closure import LoopParams
+    from viso_tpu_torch.tools import diag_loops, multiprocess_ba
+    from viso_tpu_torch.utils import metrics
+
+    cfg = dataclasses.replace(diag_loops.stereo_config(), distribute_ba=True,
+                              stats_deterministic=True)
+    lp = LoopParams(min_inliers=40, max_correction_m=4.0)
+    frames = np.stack([np.stack(pair) for pair in orbit])
+    c_gt = metrics.camera_centers(Rs, ts)
+    t0 = time.perf_counter()
+    world1 = multiprocess_ba.slam_rank(dev, frames, cfg, lp)
+    t1 = time.perf_counter()
+    ranks = multiprocess_ba.launch(multiprocess_ba.slam_rank, DIST_CELL_RANKS,
+                                   args=(frames, cfg, lp, True), device=dev, backend="gloo",
+                                   timeout=DIST_CELL_TIMEOUT_S)
+    t2 = time.perf_counter()
+    raw_equal, rank_gap = multiprocess_ba.slam_ranks_gap(ranks)
+    bad = []
+    for r in [world1] + ranks:
+        pf = np.asarray(r["per_frame_s"])
+        ate = metrics.ate_rmse(r["c"], c_gt, align=True, with_scale=False)
+        band = (float(np.abs(r["c"] - world1["c"]).max()),
+                float(np.abs(r["c_raw"] - world1["c_raw"]).max()))
+        apart = np.flatnonzero(np.abs(r["c_raw"] - world1["c_raw"]).max(axis=-1) > 1e-3)
+        sync = " (whole device synchronised after every frame)" if r["world"] > 1 and \
+            r["rank"] == 0 else ""
+        print(f"(e) loop SLAM cell, rank {r['rank']} of {r['world']}{sync}: "
+              f"{len(pf) / pf.sum():.3f} frames/s mean, {1.0 / float(np.median(pf)):.3f} median "
+              f"(host clock per process() call), {r['keyframes']} keyframes in the window, "
+              f"{r['nodes']} nodes, {r['window_bas']} window BAs (solve {r['ba_solve']}), "
+              f"{len(r['loops'])} loops {r['loops']}, ATE {ate:.6f} m (limit "
+              f"{SLAM_ATE_LIMIT_M}), corrected / raw centres {band[0]:.3g} / {band[1]:.3g} m "
+              f"from world 1 (limit {DIST_CELL_BAND_M}; raw first 1 mm apart at frame "
+              f"{apart[0] if apart.size else None}), K1 launches {r['k1_launches']}, "
+              f"{len(r['drained'])} drained captures, hook errors {r['hook_errors']} [{card}]")
+        if not (len(r["c"]) == SLAM_FRAMES and np.isfinite(r["c"]).all() and r["loops"]
+                and not r["hook_errors"] and ate < SLAM_ATE_LIMIT_M and r["k1_launches"] > 0
+                and max(band) <= DIST_CELL_BAND_M):
+            bad.append(r["rank"] if r["world"] > 1 else "world 1")
+    print(f"(e) {DIST_CELL_RANKS} gloo ranks sharing one card: raw trajectories equal "
+          f"{raw_equal}, corrected centres within {rank_gap:.3g} m of rank 0's (limit "
+          f"{DIST_CELL_RANK_GAP_M}); world 1 {t1 - t0:.1f} s, the ranks {t2 - t1:.1f} s "
+          f"[{card}]")
+    if bad or not raw_equal or rank_gap > DIST_CELL_RANK_GAP_M or not all(
+            r["ba_solve"] == "eager (gloo)" for r in ranks):
+        raise AssertionError(f"(e): failing runs {bad}, raw equal {raw_equal}, rank gap "
+                             f"{rank_gap} m")
+    return world1["k1_launches"] + sum(r["k1_launches"] for r in ranks)
+
+
+def dist_cli_phase(dev, card):
+    """Phase 10(f). `run.main(["--distribute", "--mode", "mono-slam", ...])`
+    on the CLI's synthetic run (240x320, CLI_FRAMES frames) over 2 spawned
+    gloo ranks sharing the card (`multiprocess_ba.cli_rank`): mono reaches
+    tracking on both, the ranks' trajectories equal, each run within the
+    CLI's bound, no hook error. Returns K1's launches."""
+    import tempfile
+
+    from viso_tpu_torch.tools import multiprocess_ba
+
+    with tempfile.TemporaryDirectory(prefix="viso_dist_cli_") as tmp:
+        argv = ["--distribute", "--dataset", "synthetic", "--mode", "mono-slam",
+                "--max-frames", str(CLI_FRAMES), "--out-dir", tmp]
+        t0 = time.perf_counter()
+        ranks = multiprocess_ba.launch(multiprocess_ba.cli_rank, 2, args=(argv,), device=dev,
+                                       backend="gloo", timeout=DIST_SPAWN_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        dirs = [tmp, os.path.join(tmp, "rank1")]
+        trajs = [np.loadtxt(os.path.join(d, "trajectory.txt")) for d in dirs]
+        states = []
+        for d in dirs:
+            with open(os.path.join(d, "frames.jsonl")) as f:
+                states.append([json.loads(line)["state"] for line in f])
+    limit = CLI_ATE_LIMITS["mono-slam"]
+    for rank, (r, st) in enumerate(zip(ranks, states)):
+        s = r["summary"]
+        print(f"(f) CLI --distribute --mode mono-slam, rank {rank} of 2: ATE "
+              f"{s['ate_rmse_m']:.6f} m (limit {limit}), {s['keyframes']} keyframes, first "
+              f"tracking frame {st.index('tracking') if 'tracking' in st else None}, hook errors "
+              f"{s['hook_errors']}, device {s['device']}, K1 launches {r['k1_launches']} "
+              f"[{card}]")
+    equal = np.array_equal(trajs[0], trajs[1]) and states[0] == states[1]
+    print(f"(f) ranks' trajectories and states equal {equal}; {wall:.1f} s [{card}]")
+    if not (equal and all(st[-1] == "tracking" and len(st) == CLI_FRAMES for st in states)
+            and all(np.isfinite(r["summary"]["ate_rmse_m"])
+                    and r["summary"]["ate_rmse_m"] < limit and r["summary"]["hook_errors"] == 0
+                    and r["k1_launches"] > 0 for r in ranks)):
+        raise AssertionError(f"(f): equal {equal}, states {states}, "
+                             f"summaries {[r['summary'] for r in ranks]}")
+    return sum(r["k1_launches"] for r in ranks)
 
 
 def main() -> int:
@@ -2373,10 +2509,15 @@ def main() -> int:
                                    dev, card)
     print(f"phase 9 wall {time.perf_counter() - t0:.1f} s")
 
-    # Phase 10: the distributed window BA.
+    # Phase 10: the distributed window BA, then SLAM over ranks.
     t0 = time.perf_counter()
     dist_k1 = dist_phase(torch, extract, dev, card)
-    print(f"phase 10 wall {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    dist_k1 += dist_slam_phase(torch, orbit, orbit_Rs, orbit_ts, dev, card)
+    t2 = time.perf_counter()
+    dist_k1 += dist_cli_phase(dev, card)
+    print(f"phase 10 wall {time.perf_counter() - t0:.1f} s ((a)-(d) {t1 - t0:.1f} s, (e) "
+          f"{t2 - t1:.1f} s, (f) {time.perf_counter() - t2:.1f} s)")
 
     # Phase 11: the stats-delay scenario and the diagnostic and profiling tools.
     t0 = time.perf_counter()

@@ -696,7 +696,7 @@ def test_nccl_world_one_ba_solve_program_replays_bit_equal(cuda_device, tmp_path
         mesh = mesh_mod.make_mesh(device=cuda_device)
         assert dist_ba.capturable(mesh)
         solver = dist_ba.ShardedSolver(mesh, params)
-        program = solver.program(programs.Cache(cuda_device).capture_stream)
+        program = solver.program(programs.Cache(cuda_device))
         rows = []
         for _ in range(4):
             out, info = program(prob)
@@ -708,3 +708,41 @@ def test_nccl_world_one_ba_solve_program_replays_bit_equal(cuda_device, tmp_path
         dist.destroy_process_group()
     assert rows == [True] * 4
     assert program.graph is not None and program.replays == 3
+
+
+@pytest.mark.cuda
+def test_device_synchronise_between_frames_meets_no_capture_on_cuda(cuda_device):
+    """A StereoSLAM on `multiprocess_ba`'s 14-frame corridor with a
+    keyframe every frame and loop guard 1, so that the loop worker calls
+    each detection segment at every keyframe from the second and solves
+    the graph of one bucket more than once: the caller synchronises the
+    whole device after every `process()` call while the worker runs. No
+    hook error; by `join()` every loop program called twice or more is
+    captured (the worker's asked for and made inside engine calls), none
+    is pending, and the worker's programs replayed."""
+    import dataclasses
+
+    from viso_tpu_torch.slam.full import StereoSLAM
+    from viso_tpu_torch.slam.loop_closure import LoopParams
+    from viso_tpu_torch.tools import multiprocess_ba
+
+    frames, _, _, intr_kw = multiprocess_ba.engine_frames()
+    cfg = dataclasses.replace(multiprocess_ba.engine_config(intr_kw), kf_min_gap=1, kf_max_gap=1)
+    slam = StereoSLAM(cfg, LoopParams(capacity=16, guard=1), device=cuda_device)
+    try:
+        for il, ir in frames:
+            slam.process(il, ir)
+            torch.cuda.synchronize()
+        slam.join()
+        torch.cuda.synchronize()
+        cache = slam._loop_programs
+        progs = {k[0]: p for k, p in cache.programs.items()}
+        errors, pending = list(slam.hook_errors), cache.pending
+        drained = {name for name, _ in cache.captures}
+    finally:
+        slam.close()
+    assert errors == [] and pending == 0
+    assert progs["pose_graph"].calls >= 2 and progs["detect_match"].calls >= 3, progs
+    assert all(p.graph is not None for p in progs.values() if p.calls >= 2)
+    assert {"detect_match", "detect_dlt", "detect_dlt_sign", "detect_pnp", "pose_graph"} <= drained
+    assert all(progs[n].replays >= 1 for n in ("detect_match", "detect_pnp", "digest"))

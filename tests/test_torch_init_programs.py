@@ -304,7 +304,7 @@ def test_ba_solve_program_at_world_one_is_bit_equal():
     params = ba.BAParams(iters=4, num_fixed=2)
     mesh = mesh_mod.make_mesh(device="cpu")
     solver = dist_ba.ShardedSolver(mesh, params)
-    program = solver.program(programs.Cache("cpu").capture_stream)
+    program = solver.program(programs.Cache("cpu"))
     out_1, info_1 = ba.solve_impl(prob, params)
     found = []
     for _ in range(3):

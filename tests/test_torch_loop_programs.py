@@ -25,7 +25,10 @@ The replays on the card: tests/test_torch_cuda.py and chip_smoke.py's
 phase 13.
 """
 
+import concurrent.futures
 import functools
+import sys
+import threading
 import types
 
 import jax
@@ -406,3 +409,159 @@ def stereo_frames():
         il, ir, _ = j_syn.make_stereo_pair(corridor, intr, R, t, H, W, baseline=0.3)
         out.append((np.clip(il, 0, 255).astype(np.uint8), np.clip(ir, 0, 255).astype(np.uint8)))
     return out
+
+
+# -- captures inside engine calls only ------------------------------------------
+
+
+class ReplayedGraph:
+    """A CUDA graph's stand-in on the CPU: a replay runs the function again
+    on the captured arguments and writes its results into the outputs the
+    capture returned, the static outputs a graph writes."""
+
+    def __init__(self, fn, args, out):
+        self.fn, self.args, self.out = fn, args, programs.flatten(out)[0]
+
+    def replay(self):
+        for s, x in zip(self.out, programs.flatten(self.fn(*self.args))[0]):
+            if isinstance(s, torch.Tensor) and s.data_ptr() != x.data_ptr():
+                s.copy_(x)
+
+
+@pytest.fixture
+def fake_capture(monkeypatch):
+    """Captures on the CPU as `ReplayedGraph`s. Yields (records, state):
+    each capture appends (program's function, its thread, whether
+    `state["inside"]` was set, as the test sets it around engine calls)."""
+    records, state = [], {"inside": False}
+
+    def capture(fn, args, device, warmups=programs.WARMUP_CALLS, counted=True, stream=None):
+        records.append((fn, threading.get_ident(), state["inside"]))
+        out = fn(*args)
+        return ReplayedGraph(fn, args, out), out, {}
+
+    monkeypatch.setattr(programs, "_capture", capture)
+    monkeypatch.setattr(programs.Cache, "capture_stream", lambda self, thread=None: None)
+    yield records, state
+
+
+def test_a_program_made_on_another_thread_captures_when_drained(fake_capture):
+    """A cached program made on a thread other than the cache's runs
+    eagerly at its first and second calls and asks for its capture once;
+    `drain` makes it on the draining thread, and the program's next call
+    on its own thread replays, its outputs equal to the eager function's.
+    A program made on the cache's thread captures at its second call."""
+    records, _ = fake_capture
+    cache = programs.Cache("cpu")
+    cache.graphed = True
+
+    def fn(x, k):
+        return x * k, x.sum()
+
+    xs = [torch.from_numpy(np.random.default_rng(s).normal(size=5).astype(np.float32))
+          for s in range(4)]
+    with concurrent.futures.ThreadPoolExecutor(1) as worker:
+        def call(x):
+            return worker.submit(
+                lambda: [t.clone() for t in cache.get(("f",), fn)(x, 2.0)]).result()
+
+        for k in range(2):
+            got = call(xs[k])
+            for a, b in zip(got, fn(xs[k], 2.0)):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+            assert cache.pending == k and records == []
+        prog = cache.programs[("f",)]
+        assert prog.graph is None and prog.replays == 0
+        call(xs[1])                                  # asked once
+        assert cache.pending == 1
+        cache.drain()
+        assert cache.pending == 0 and prog.graph is not None
+        assert [r[1] for r in records] == [threading.get_ident()]
+        assert [name for name, _ in cache.captures] == ["f"]
+        for x in xs[2:]:
+            for a, b in zip(call(x), fn(x, 2.0)):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert prog.replays == 2
+    own = cache.get(("g",), fn)
+    own(xs[0], 3.0)
+    assert own.graph is None
+    own(xs[1], 3.0)
+    assert own.graph is not None and own.replays == 1 and cache.pending == 0
+    assert len(records) == 2 and len(cache.captures) == 1
+
+
+def test_loop_worker_captures_drain_inside_engine_calls(fake_capture, stereo_frames):
+    """A StereoSLAM (a keyframe every frame, guard 1, so detection runs at
+    every keyframe from the third) whose loop programs capture as
+    `ReplayedGraph`s: every capture runs on the dispatch thread inside
+    `process()`, `join()` or `trajectory()`, the worker's detection
+    segments among them (asked for by the worker, made at a drain) and
+    replayed after; the run (its loops and solves too) equal to the same
+    engine's eager run."""
+    records, state = fake_capture
+    cfg = VOConfig(**dict(CFG, kf_min_gap=1, kf_max_gap=1))
+    lp = LoopParams(capacity=16, num_features=64, guard=1)
+    runs = []
+    for graphed in (False, True):
+        slam = StereoSLAM(cfg, lp, device="cpu")
+        slam._loop_programs.graphed = graphed
+        try:
+            for il, ir in stereo_frames:
+                state["inside"] = True
+                slam.process(il, ir)
+                state["inside"] = False
+                slam._hook_last.result()   # the worker's requests are in before the next frame
+            state["inside"] = True
+            R, t = slam.trajectory()
+            state["inside"] = False
+            cache = slam._loop_programs
+            runs.append((R, t, np.stack(slam.pg_R), np.stack(slam.pg_t), list(slam.loops),
+                         list(slam.hook_errors), cache))
+        finally:
+            slam.close()
+    assert runs[0][5] == [] and runs[1][5] == []
+    for a, b in zip(runs[0][:4], runs[1][:4]):
+        np.testing.assert_array_equal(a, b)
+    assert runs[0][4] == runs[1][4]
+    cache = runs[1][6]
+    assert records and all(th == threading.get_ident() and inside for _, th, inside in records)
+    drained = {name for name, _ in cache.captures}
+    detect = {k[0]: p for k, p in cache.programs.items() if k[0].startswith("detect")}
+    assert set(detect) == {"detect_match", "detect_dlt", "detect_dlt_sign", "detect_pnp"}
+    assert set(detect) <= drained and cache.pending == 0
+    assert all(p.graph is not None and p.replays >= 1 for p in detect.values())
+    assert cache.programs[("digest",)].replays == len(stereo_frames) - 1
+
+
+@pytest.mark.parametrize("sim3", [False, True])
+def test_solves_on_several_threads_at_once(sim3):
+    """Pose-graph solves on 4 threads at once (the loop worker's eager
+    solve and a capture of a solve on the dispatch thread meet so), with
+    a short switch interval: each equal to the solve alone, bit for bit.
+    PyTorch's forward-mode AD levels are process-wide, so the
+    linearizations take turns (`pose_graph.forward_jacobian`)."""
+    if sim3:
+        edges, pg_s, pg_R, pg_t, _, _ = drift_problem(24, 1.005)
+        case = (t_pgs, (pg_s, pg_R, pg_t, edges), ("s", "R", "t"))
+    else:
+        pR, pt, edges = _se3_graph(24)
+        case = (t_pg, (pR, pt, edges), ("R", "t"))
+    mod, args, keys = case
+    params = mod.PGParams(iters=3)
+
+    def solve():
+        out, _ = mod.solve_padded(*args, params, device="cpu")
+        return [getattr(out, k) for k in keys]
+
+    ref = solve()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            futures = [pool.submit(lambda: [solve() for _ in range(3)]) for _ in range(4)]
+            results = [f.result(timeout=120) for f in futures]
+    finally:
+        sys.setswitchinterval(interval)
+    for runs in results:
+        for got in runs:
+            assert all(torch.equal(a, b) for a, b in zip(got, ref))

@@ -437,3 +437,30 @@ def test_replays_add_the_launches_the_capture_held(monkeypatch):
     fn(x)                                      # the bare function counts itself
     assert counter.launches == 3 * programs.WARMUP_CALLS + 15
     assert programs.measure_counts(lambda: None) == {}
+
+
+def test_gc_paused_nests_and_restores():
+    """No collection runs while a capture is in flight (a closed engine's
+    graphs destroyed by a collection would break the capture): the
+    collector is off inside `gc_paused`, stays off until the last of two
+    overlapping pauses ends, and comes back as it was."""
+    import gc
+
+    assert gc.isenabled()
+    outer = programs.gc_paused()
+    outer.__enter__()
+    try:
+        assert not gc.isenabled()
+        with programs.gc_paused():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    finally:
+        outer.__exit__(None, None, None)
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with programs.gc_paused():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

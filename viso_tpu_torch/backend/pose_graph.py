@@ -21,6 +21,7 @@ solvers (`dense_delta`, `pcg_delta`) and the LM loop
 from __future__ import annotations
 
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -87,6 +88,13 @@ def compute_cost(graph: PoseGraph, params: PGParams = PGParams()):
     return torch.sum(w * robust.huber_cost(r_norm, params.huber))
 
 
+# PyTorch keeps its forward-mode AD levels for the whole process, not per
+# thread: two threads inside `torch.func.jvp` at once (the loop worker's
+# eager solve while the dispatch thread captures a solve) break each
+# other's level. One linearization at a time.
+_FORWARD_AD = threading.Lock()
+
+
 def forward_jacobian(res, zeros):
     """Residuals (E, m) of `res(xi)` at xi = `zeros` (E, n) and their
     Jacobians (E, m, n): forward mode, one column per basis direction of
@@ -101,7 +109,8 @@ def forward_jacobian(res, zeros):
         return torch.func.jvp(res, (zeros,), (v.expand(E, n),))[1]
 
     basis = torch.eye(n, dtype=zeros.dtype, device=zeros.device)
-    J = torch.func.vmap(column)(basis)                  # (n, E, m)
+    with _FORWARD_AD:
+        J = torch.func.vmap(column)(basis)              # (n, E, m)
     return res(zeros), J.permute(1, 2, 0)
 
 

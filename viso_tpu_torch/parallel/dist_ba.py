@@ -125,19 +125,19 @@ class ShardedSolver:
         self.stats = CollectiveStats()
         self._captured = None   # (sizes, gather bytes) of the captured solve
 
-    def program(self, capture_stream):
+    def program(self, cache):
         """This solver as a program (`slam/programs.Program`, named
-        `ba_solve`): eager at its first call, captured at its second on the
-        stream `capture_stream()` gives, replayed after; `stats` restored
-        from the capture after each replay. Raises over gloo."""
+        `ba_solve`) of `cache` (a `slam/programs.Cache`, which does not
+        keep it): eager at its first call, captured at its second on the
+        cache's stream, replayed after; `stats` restored from the capture
+        after each replay. Raises over gloo."""
         from viso_tpu_torch.slam import programs
 
         if not capturable(self.mesh):
             raise ValueError("the sharded solve over gloo cannot be captured: call the "
                              "solver eagerly")
-        return programs.Program(self, self.mesh.device, name="ba_solve",
-                                capture_stream=capture_stream, counted=False,
-                                on_replay=self.replayed)
+        return programs.Program(self, self.mesh.device, name="ba_solve", cache=cache,
+                                counted=False, on_replay=self.replayed)
 
     def replayed(self):
         """After a replay of the captured solve: `stats` as the capture

@@ -13,13 +13,20 @@ when the dataset ships ground truth, ATE/RPE. The engine runs on
 `--device cpu` is given.
 
 `--distribute` solves the window BA landmark-sharded over the
-`torch.distributed` world (north-star config 5). Under `torchrun`
-(`WORLD_SIZE` set) the runner joins the group itself, NCCL for CUDA with
-one card per rank, gloo for the CPU, and writes rank r's outputs into
-`--out-dir/rank<r>` (rank 0's into `--out-dir`); otherwise the world is
-this one process:
+`torch.distributed` world (north-star config 5), in every mode. Under
+`torchrun` (`WORLD_SIZE` set) the runner joins the group itself, NCCL for
+CUDA with one card per rank, gloo for the CPU, and writes rank r's
+outputs into `--out-dir/rank<r>` (rank 0's into `--out-dir`); otherwise
+the world is this one process. Over more than one rank every rank
+consumes its per-frame stats at a fixed lag (`stats_deterministic`), so
+that the ranks make the same keyframe decisions; in the SLAM modes each
+rank runs its own loop layer on the same keyframes:
 
   torchrun --nproc-per-node 2 -m viso_tpu_torch.run --distribute --mode stereo
+  torchrun --nproc-per-node 4 -m viso_tpu_torch.run --distribute --mode slam
+
+The summary of a SLAM mode counts the loop layer's failed keyframe hooks
+(`hook_errors`).
 """
 
 from __future__ import annotations
@@ -184,8 +191,8 @@ def main(argv=None):
     # for stereo and slam.
     ap.add_argument("--ba-backend", choices=["auto", "reprojection", "photometric"],
                     default="auto")
-    # Distributed window BA over the torch.distributed world (see the
-    # module docstring); --mesh-devices 0 = the whole world.
+    # Distributed window BA over the torch.distributed world, in every
+    # mode (see the module docstring); --mesh-devices 0 = the whole world.
     ap.add_argument("--distribute", action="store_true")
     ap.add_argument("--mesh-devices", type=int, default=0)
     ap.add_argument("--height", type=int, default=0)
@@ -296,6 +303,8 @@ def _run(args, device):
 
     checkpoint.save_trajectory(os.path.join(args.out_dir, "trajectory.txt"), R_est, t_est)
     summary = log.summary()
+    if args.mode in SLAM_MODES:
+        summary["hook_errors"] = len(vo.hook_errors)
     summary["sequence"] = seq.name
     summary["device"] = str(device)
     title = seq.name

@@ -57,7 +57,14 @@ write-back and the adoption gate). gloo's collectives cannot be
 captured: over gloo `ba_solve` runs eagerly, and `program_listing` says
 so. Every other program runs replicated on each rank's own device. Each
 rank must make the same keyframe decisions, so a run of more than one
-rank needs `stats_deterministic` or `kf_min_gap == kf_max_gap`.
+rank needs `stats_deterministic` or `kf_min_gap == kf_max_gap`. The
+SLAM engines distribute too: each rank runs its own loop layer on the
+same keyframes (`slam/full.py`).
+
+No CUDA graph capture runs outside an engine call: `process()` first
+makes the captures that another thread (the SLAM loop worker) asked for
+(`programs.Cache.drain`), so a caller may synchronise the whole device
+between calls.
 """
 
 from __future__ import annotations
@@ -316,6 +323,11 @@ class BaseVO:
                     return s
         return self.kf_order.pop(0)
 
+    def _drain_captures(self):
+        """Make the program captures that other threads asked for, on this
+        thread, inside an engine call (`programs.Cache.drain`)."""
+        self._cache.drain()
+
     def _post_keyframe(self, slot: int, pyr) -> None:
         """Hook invoked after a keyframe is fully integrated (inserted,
         window-BA-refined, templates rebuilt). SLAM layers add pose-graph
@@ -389,7 +401,7 @@ class BaseVO:
         prog = self._kernels.get(name)
         if prog is None:
             if name == "ba_solve":
-                prog = self._sharded_solver().program(self._cache.capture_stream)
+                prog = self._sharded_solver().program(self._cache)
             else:
                 method = PROGRAMS.get(name) or DIST_BA_PROGRAMS[name]
                 prog = programs.Program(getattr(self, method), self.device, self._owned)
@@ -521,10 +533,6 @@ class BaseVO:
             b = "reprojection"
         return b
 
-    # Whether the engine may run its window BA over more than one rank
-    # (the SLAM loop layer lands corrections at times that differ per rank).
-    _multi_rank_ba = True
-
     def _mesh(self):
         """The landmark group of the distributed window BA, built once."""
         if getattr(self, "_ba_mesh", None) is None:
@@ -532,10 +540,6 @@ class BaseVO:
 
             cfg = self.cfg
             mesh = mesh_mod.make_mesh(cfg.mesh_devices or None, device=self.device)
-            if mesh.size > 1 and not self._multi_rank_ba:
-                raise ValueError(
-                    f"{type(self).__name__} runs distribute_ba at world size 1 only"
-                )
             if mesh.size > 1 and not (cfg.stats_deterministic
                                       or cfg.kf_min_gap == cfg.kf_max_gap):
                 raise ValueError(
@@ -704,8 +708,13 @@ class BaseVO:
         return ok_align, refined, n_tracked, pyr
 
     def close(self):
-        """Drop in-flight stats fetches."""
+        """Drop in-flight stats fetches and the engine's programs. Their
+        CUDA graphs go here, not whenever the engine's reference cycles are
+        collected: NCCL does not destroy a communicator while a graph that
+        captured its collectives (`ba_solve`) lives, so a process group
+        destroyed after an engine run would wait on it for ever."""
         self._pending_stats = []
+        self._kernels = {}
 
     def _stats_fresh(self) -> bool:
         """True when the last consumed stats sample postdates the newest
@@ -766,6 +775,7 @@ class StereoVO(BaseVO):
 
     def process(self, img_left, img_right) -> FrameResult:
         cfg = self.cfg
+        self._drain_captures()
         self.frame_idx += 1
         img_left, img_right = self.to_device(img_left, img_right)
 
@@ -901,6 +911,7 @@ class MonocularVO(BaseVO):
 
     def process(self, img) -> FrameResult:
         cfg = self.cfg
+        self._drain_captures()
         self.frame_idx += 1
         img = self.to_device(img)
 

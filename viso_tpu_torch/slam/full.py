@@ -31,9 +31,26 @@ The loop layer's device work runs as programs of its own cache
 cache): the digest (on the dispatch thread), loop detection's segments
 and the pose-graph solve of each power-of-two bucket (on the worker,
 replayed on the worker's stream). On a CUDA engine each is a CUDA graph
-from its second call on, captured on a stream the cache keeps for the
-calling thread; on the CPU each runs eagerly through the same static
-buffers.
+from its second call on; on the CPU each runs eagerly through the same
+static buffers. The dispatch thread makes every capture, inside an
+engine call: the digest's at its second call, the worker's programs'
+when `process()`, `join()` or `trajectory()` drains what the worker
+asked for (the worker runs a program eagerly until its graph is in
+place). A caller may synchronise the device between engine calls.
+
+Over several ranks (`distribute_ba` with `stats_deterministic`, or a
+pinned keyframe cadence) every rank runs the whole engine on the same
+frames, its loop layer included: SPMD, with the window BA's collectives
+the only traffic. The raw VO is equal across ranks bit for bit (poses,
+keyframes, map): each rank makes the same decisions on the same values,
+and every all-reduce hands each rank the same sums. The nodes, the
+database and each loop detection follow from the raw poses and the map
+(and the database's generator, seeded alike), and the throttle counts
+node ids, so every rank solves the same graphs at the same nodes. The
+solved node poses, and so `trajectory()`, agree only within a tolerance
+on CUDA: the pose-graph LM accumulates with atomics
+(`backend/pose_graph.py`), whose order differs from run to run
+(chip_smoke.py phase 10(e) measures the ranks' spread).
 
 `LoopLayer` holds what stereo and monocular SLAM (`slam/mono_full.py`)
 share: the node and edge bookkeeping, the hook's two sides, the throttle,
@@ -60,6 +77,10 @@ from viso_tpu_torch.ops import descriptors
 from viso_tpu_torch.slam import programs
 from viso_tpu_torch.slam.engine import HostFetch, StereoVO, VOConfig, _pull_poses
 from viso_tpu_torch.slam.loop_closure import LoopDatabase, LoopParams
+
+
+# How often join() looks for the worker's capture requests while it waits.
+JOIN_POLL_S = 0.005
 
 
 def _rel_np(Ra, ta, Rb, tb):
@@ -97,10 +118,6 @@ class LoopLayer:
     `_loop_edge` and `_solve`; for nodes with a scale also
     `_node_scales`, `_add_estimate`, `_store_solution` and
     `_solve_health`."""
-
-    # Loop corrections land on the worker thread at times that differ per
-    # rank: distribute_ba runs at world size 1 only.
-    _multi_rank_ba = False
 
     def _init_loop_layer(self, loop_params: LoopParams | None):
         self.loop_params = loop_params or LoopParams()
@@ -151,13 +168,24 @@ class LoopLayer:
         self.hook_errors: list[Exception] = []
 
     def join(self):
-        """Block until every enqueued keyframe hook has completed, then
-        flush a pose-graph solve still pending behind the throttle."""
+        """Block until every enqueued keyframe hook has completed, making
+        the captures the worker asks for meanwhile (so that a worker behind
+        the frames replays what it would run eagerly), flush a pose-graph
+        solve still pending behind the throttle, then make the captures
+        left."""
         if self._hook_last is not None:
+            while not self._hook_last.done():
+                self._drain_captures()
+                concurrent.futures.wait([self._hook_last], timeout=JOIN_POLL_S)
             self._hook_last.result()
         if self._pg_dirty:
             self._pg_dirty = False
             self._optimize_pose_graph()
+        self._drain_captures()
+
+    def _drain_captures(self):
+        super()._drain_captures()
+        self._loop_programs.drain()
 
     def close(self):
         super().close()

@@ -42,21 +42,37 @@ keyframe digest) keeps its programs in a `Cache`, keyed by name and
 static shape as the JAX jit cache is. A cached program's first call runs
 the function eagerly on the caller's stream and returns that result
 (it is the warm-up: lazy library and handle set-up on the calling
-thread); its second call captures, on a stream that only the cache's
-captures from the calling thread use, and replays on the caller's
-stream; later calls replay. Captures begin and end on their stream
-alone (`capture_begin(capture_error_mode="thread_local")`): no
-device-wide synchronisation, so one thread may capture while another
-replays or captures on its own stream. A capture never runs on a stream
-that eager work uses: work another thread or a finalizer enqueues there
-(the pinned host allocator records its events on the streams a block was
-copied on, when the block is freed) would join the graph.
+thread); its second call captures and replays on the caller's stream;
+later calls replay. Only the cache's own thread (the one that made it:
+the engine's dispatch thread) captures, and only its own programs, at
+their second call. A program made on another thread (the loop worker's
+detection and solves) runs eagerly at its second call too and asks for
+its capture (`Cache.drain`): the engine drains those requests on its
+own thread at the start of each `process()` and in `join()` and
+`trajectory()`. So no capture runs while the engine's caller is outside
+an engine call, and a caller's device-wide synchronise between those
+calls never meets one (a synchronise from any thread during a capture
+is refused and breaks it). The worker runs the program eagerly until
+its graph is in place, then replays it.
+
+Every capture of a program runs on a stream that the cache keeps for
+the thread that made the program, and that no eager work uses: work
+another thread or a finalizer enqueues there (the pinned host allocator
+records its events on the streams a block was copied on, when the block
+is freed) would join the graph. Captures begin and end on their stream
+alone (`capture_begin(capture_error_mode="thread_local")`), with no
+device-wide synchronisation: the worker's eager work goes on while the
+dispatch thread captures.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import functools
+import gc
 import threading
+import time
 
 import torch
 
@@ -130,27 +146,31 @@ class Program:
 
     fn: the bare function; device: the engine's; owned: the data pointers
     of the tensors the engine keeps for its life, read in place; name:
-    the program's name (the function's by default); capture_stream: a
-    callable giving the stream to capture on, for a `Cache`'s programs,
-    whose first call then runs `fn` eagerly and returns its result (the
-    warm-up) and whose second captures with no further warm-up (by
-    default: capture at the first call, on a new side stream after
-    WARMUP_CALLS there); counted: whether a capture measures `COUNTERS`
-    (a program that holds no counted kernel and is captured while another
-    thread launches one must not, or it would take that thread's launches
-    back); on_replay: called after each replay, for Python-side records
-    that the function keeps and a replay does not run
-    (`parallel/dist_ba.ShardedSolver.replayed`)."""
+    the program's name (the function's by default); cache: the `Cache`
+    whose program it is: its first call then runs `fn` eagerly and
+    returns its result (the warm-up), and its second captures with no
+    further warm-up on the cache's thread or asks the cache for its
+    capture on another (by default: capture at the first call, on a new
+    side stream after WARMUP_CALLS there); counted: whether a capture measures
+    `COUNTERS` (a program that holds no counted kernel and is captured
+    while another thread launches one must not, or it would take that
+    thread's launches back); on_replay: called after each replay, for
+    Python-side records that the function keeps and a replay does not
+    run (`parallel/dist_ba.ShardedSolver.replayed`)."""
 
-    def __init__(self, fn, device, owned=frozenset(), *, name=None, capture_stream=None,
+    def __init__(self, fn, device, owned=frozenset(), *, name=None, cache=None,
                  counted=True, on_replay=None):
         self.fn = fn
         self.on_replay = on_replay
         self.name = name or getattr(fn, "__name__", type(fn).__name__)
         self.device = torch.device(device)
         self.owned = owned
-        self.graphed = self.device.type == "cuda"
-        self.capture_stream = capture_stream
+        self.cache = cache
+        self.graphed = cache.graphed if cache is not None else self.device.type == "cuda"
+        # The thread that made the program: its captures use that thread's
+        # stream of the cache.
+        self.thread = threading.get_ident()
+        self.requested = False  # its capture is queued in the cache
         self.counted = counted
         self.spec = None
         self.inputs = None      # static input leaves (tensors, or None)
@@ -168,17 +188,28 @@ class Program:
         self.calls += 1
         if not self.graphed:
             return self._eager()
-        if self.graph is None:
-            kw = {}
-            if self.capture_stream is not None:
-                if self.calls == 1:
-                    return self.fn(*unflatten(self.spec, self.inputs))
-                kw = {"warmups": 0, "counted": self.counted, "stream": self.capture_stream()}
-            self.graph, self.outputs, self.counts = _capture(
-                self.fn, unflatten(self.spec, self.inputs), self.device, **kw)
-        self.graph.replay()
+        graph = self.graph   # read once: another thread may set it
+        if graph is None:
+            if self.cache is not None and (self.calls == 1 or not self.cache.capture_here(self)):
+                return self.fn(*unflatten(self.spec, self.inputs))
+            self.capture()
+            graph = self.graph
+        graph.replay()
         self._replayed()
         return self.outputs
+
+    def capture(self):
+        """Capture the program on its staged inputs (`_capture`): a cache's
+        program with no further warm-up on the cache's stream for the
+        thread that made it, any other on a new side stream after
+        WARMUP_CALLS."""
+        kw = {}
+        if self.cache is not None:
+            kw = {"warmups": 0, "counted": self.counted,
+                  "stream": self.cache.capture_stream(self.thread)}
+        graph, self.outputs, self.counts = _capture(
+            self.fn, unflatten(self.spec, self.inputs), self.device, **kw)
+        self.graph = graph   # last: a thread that sees the graph finds its outputs
 
     def _replayed(self):
         self.replays += 1
@@ -257,14 +288,22 @@ class Cache:
     use (the JAX jit cache): `get(key, fn)` returns the program of `key`,
     whose first element names it, made from `fn` when the key is new.
     Its programs run eagerly at their first call and capture at their
-    second (module docstring). owned: data pointers read in place, a set
-    that the layer extends with the tensors it keeps for its life."""
+    second, on the cache's thread; one made on another thread asks for
+    its capture, which `drain` makes (module docstring). owned: data
+    pointers read in place, a set that the layer extends with the tensors
+    it keeps for its life. `captures` records each drained capture as
+    (name, seconds on the host clock)."""
 
     def __init__(self, device, owned=()):
         self.device = torch.device(device)
+        self.graphed = self.device.type == "cuda"
         self.owned = set(owned)
         self.programs: dict = {}
-        self._streams: dict = {}   # thread id -> its captures' stream
+        self.thread = threading.get_ident()
+        self.captures: list = []
+        self._streams: dict = {}   # thread id -> the stream of its programs' captures
+        self._requests = collections.deque()
+        self._lock = threading.Lock()
 
     def own(self, *tensors):
         self.owned.update(x.data_ptr() for x in tensors)
@@ -273,8 +312,7 @@ class Cache:
         prog = self.programs.get(key)
         if prog is None:
             prog = self.programs[key] = Program(fn, self.device, self.owned, name=key[0],
-                                                capture_stream=self.capture_stream,
-                                                counted=counted)
+                                                cache=self, counted=counted)
         return prog
 
     def run(self, name, fn, statics, *args, counted=False):
@@ -287,14 +325,43 @@ class Cache:
         key = (name, tuple(sorted(statics.items())), shapes)
         return self.get(key, functools.partial(fn, **statics), counted=counted)(*args)
 
-    def capture_stream(self):
-        """The stream the calling thread's captures use, made at its first
-        capture (within the cache's life, so that the stream pool's
-        round robin does not hand it to the layer's other streams)."""
-        ident = threading.get_ident()
-        if ident not in self._streams:
-            self._streams[ident] = torch.cuda.Stream(self.device)
-        return self._streams[ident]
+    def capture_here(self, prog) -> bool:
+        """Whether `prog` (due to capture) captures now: on the cache's
+        thread, a program made there. Otherwise its capture is queued,
+        once, for `drain`, and it runs eagerly meanwhile."""
+        if threading.get_ident() == self.thread == prog.thread:
+            return True
+        with self._lock:
+            if not prog.requested:
+                prog.requested = True
+                self._requests.append(prog)
+        return False
+
+    @property
+    def pending(self) -> int:
+        """Captures asked for and not yet made."""
+        return len(self._requests)
+
+    def drain(self):
+        """Make, on the calling thread, the captures that programs made on
+        another thread asked for (each on the stream of the thread that
+        made it). The engine calls this inside its own calls only."""
+        while self._requests:
+            prog = self._requests.popleft()
+            if prog.graph is None:
+                t0 = time.perf_counter()
+                prog.capture()
+                self.captures.append((prog.name, time.perf_counter() - t0))
+
+    def capture_stream(self, thread):
+        """The stream the captures of the programs made on `thread` (an
+        ident) use, made at its first use (within the cache's life, so
+        that the stream pool's round robin does not hand it to the layer's
+        other streams)."""
+        with self._lock:
+            if thread not in self._streams:
+                self._streams[thread] = torch.cuda.Stream(self.device)
+            return self._streams[thread]
 
 
 def _capture(fn, args, device, warmups=WARMUP_CALLS, counted=True, stream=None):
@@ -309,7 +376,7 @@ def _capture(fn, args, device, warmups=WARMUP_CALLS, counted=True, stream=None):
     out = []
 
     def capture():
-        with torch.cuda.device(device), torch.cuda.stream(stream):
+        with gc_paused(), torch.cuda.device(device), torch.cuda.stream(stream):
             graph.capture_begin(capture_error_mode="thread_local")
             try:
                 out.append(fn(*args))
@@ -326,3 +393,30 @@ def _capture(fn, args, device, warmups=WARMUP_CALLS, counted=True, stream=None):
         counts = {}
     main.wait_stream(stream)
     return graph, out[0], counts
+
+
+# Captures in flight, and whether the collector ran before the first.
+_GC_PAUSE = {"depth": 0, "enabled": True}
+_GC_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """The cyclic garbage collector off while a capture runs. An engine is
+    a reference cycle (its programs hold its bound methods), so a closed
+    engine's CUDA graphs go when a collection finds it; a graph destroyed
+    during a capture ("operation not permitted when stream is capturing")
+    breaks that capture. The collector's state is the process's, so
+    overlapping pauses nest."""
+    with _GC_LOCK:
+        if _GC_PAUSE["depth"] == 0:
+            _GC_PAUSE["enabled"] = gc.isenabled()
+            gc.disable()
+        _GC_PAUSE["depth"] += 1
+    try:
+        yield
+    finally:
+        with _GC_LOCK:
+            _GC_PAUSE["depth"] -= 1
+            if _GC_PAUSE["depth"] == 0 and _GC_PAUSE["enabled"]:
+                gc.enable()

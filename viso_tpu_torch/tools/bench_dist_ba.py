@@ -108,7 +108,7 @@ def rank_bench(device, C: int, L: int, iters: int):
     prob = dist_ba.pad_landmarks(build_problem(C, L, device), mesh.size)
     solver = dist_ba.make_sharded_solver(mesh, params)
     if dist_ba.capturable(mesh):
-        program = solver.program(programs.Cache(device).capture_stream)
+        program = solver.program(programs.Cache(device))
         timed = "replayed CUDA graph" if program.graphed else "eager (cpu)"
         # Two warm calls: the program's first is eager, its second captures.
         dt, (out_p, info_p) = _time(program, prob, device, warm=2)

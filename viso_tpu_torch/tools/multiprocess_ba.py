@@ -1,11 +1,13 @@
 """Multi-process check of the distributed window BA (port of
 `tools/multiprocess_ba.py`).
 
-    python -m viso_tpu_torch.tools.multiprocess_ba [--procs 2] [--engine] [--device cuda|cpu]
+    python -m viso_tpu_torch.tools.multiprocess_ba [--procs 2] [--engine | --slam]
+        [--device cuda|cpu]
 
-Starts N ranks with `torch.multiprocessing` (spawn) that form a gloo
-group over a `file://` store (no port), each on `--device` (on CUDA every
-rank uses the first card), in two modes:
+Starts N ranks with `torch.multiprocessing` (spawn) that form a group
+over a `file://` store (no port), each on `--device`: NCCL with one card
+per rank when there are as many cards as ranks, else gloo with every
+rank on the first card (`bench_dist_ba.backend_for`), in three modes:
 
   (default)  the landmark-sharded BA solve of a C=5, L=96 window; every
              rank's final cost must match its own single-rank solve within
@@ -16,7 +18,15 @@ rank uses the first card), in two modes:
              rides the group. Every rank's camera centres must be within
              0.05 m of a single-rank run of the same frames and both ATEs
              below 0.08 m. Keyframe cadence is pinned (kf_min_gap ==
-             kf_max_gap) so that every rank issues the same collectives.
+             kf_max_gap) so that every rank issues the same collectives;
+  --slam     the mesh dryrun (`__graft_entry__.py` `dryrun_multichip`):
+             its StereoSLAM (240x320, C=8, L=2048, 10 frames) with
+             `distribute_ba=True` and `stats_deterministic=True` on every
+             rank, under the dryrun's assertions (>= 3 nodes and
+             keyframes, a finite pose moved > 0.2 m forward, the window
+             BA on the group, no hook error); every rank's raw trajectory
+             equal to rank 0's and its corrected one within
+             SLAM_RANK_GAP_M.
 
 `launch` is the spawner the tests, `bench_dist_ba` and chip_smoke.py use:
 each rank sets one CPU thread, joins the group with a 60 s timeout, and
@@ -45,6 +55,10 @@ ENGINE_FRAMES = 14
 ENGINE_ATE_M = 0.08
 ENGINE_DIFF_M = 0.05
 COST_RTOL = 1e-3
+# The ranks' corrected camera centres (m): each rank solves its own pose
+# graph, whose LM accumulates with atomics on CUDA (slam/full.py), so
+# only the raw trajectories are held equal.
+SLAM_RANK_GAP_M = 1e-3
 
 
 def _rank_main(rank, world, store, out_dir, backend, device, fn, args):
@@ -254,8 +268,9 @@ def engine_rank(device):
         for il, ir in frames:
             vo.process(il, ir)
         R_est, t_est = vo.trajectory()
+        listing = vo.program_listing()
         vo.close()
-        return metrics.camera_centers(R_est, t_est), vo.program_listing().get("ba_solve")
+        return metrics.camera_centers(R_est, t_est), listing.get("ba_solve")
 
     c_single, _ = run()
     extract.launch.launches = 0
@@ -272,6 +287,88 @@ def engine_rank(device):
     }
 
 
+def slam_rank(device, frames=None, config=None, loop_params=None, sync_first_rank=False):
+    """One rank of a StereoSLAM run with its window BA on the world: the
+    mesh dryrun's (`dryrun_slam(distribute_ba=True,
+    stats_deterministic=True)` on `dryrun_frames()`) by default, else the
+    engine of `config` and `loop_params` on `frames` ((left, right) uint8
+    pairs). With `sync_first_rank`, rank 0 synchronises the whole device
+    after every `process()` call. Returns the raw and the corrected
+    camera centres, the dryrun's checks, the loops, hook errors (as
+    text), K1's launches during the run, how the solve ran and the host
+    seconds of each `process()`."""
+    from viso_tpu_torch.geometry import extract
+    from viso_tpu_torch.slam.engine import StereoVO
+    from viso_tpu_torch.slam.full import StereoSLAM
+    from viso_tpu_torch.utils import metrics
+
+    if frames is None:
+        frames = dryrun_frames()[0]
+        vo = dryrun_slam(device, distribute_ba=True, stats_deterministic=True)
+    else:
+        vo = StereoSLAM(config, loop_params, device=device)
+    mesh = vo._mesh()
+    sync = sync_first_rank and mesh.rank == 0 and torch.device(device).type == "cuda"
+    extract.launch.launches = 0
+    per_frame = []
+    try:
+        for il, ir in frames:
+            t0 = time.perf_counter()
+            vo.process(il, ir)
+            if sync:
+                torch.cuda.synchronize()
+            per_frame.append(time.perf_counter() - t0)
+        vo.join()
+        launches = extract.launch.launches
+        R_raw, t_raw = StereoVO.trajectory(vo)
+        R, t = vo.trajectory()
+        t_fin = vo.t.cpu().numpy()
+        result = {
+            "rank": mesh.rank, "world": mesh.size,
+            "c_raw": metrics.camera_centers(R_raw, t_raw), "c": metrics.camera_centers(R, t),
+            "nodes": len(vo.pg_raw_R), "keyframes": len(vo.kf_order), "t_fin": t_fin,
+            "window_bas": vo._kernels["ba_prep"].calls if "ba_prep" in vo._kernels else 0,
+            "loops": [(lp["from"], lp["to"], lp["inliers"]) for lp in vo.loops],
+            "hook_errors": [repr(e) for e in vo.hook_errors], "k1_launches": launches,
+            "ba_solve": vo.program_listing().get("ba_solve"), "per_frame_s": per_frame,
+            "drained": list(vo._loop_programs.captures),
+        }
+    finally:
+        vo.close()
+    return result
+
+
+def slam_ok(r) -> bool:
+    """`dryrun_multichip`'s assertions on one rank's `slam_rank` result."""
+    return (r["nodes"] >= 3 and r["keyframes"] >= 3 and r["window_bas"] > 0
+            and bool(np.isfinite(r["t_fin"]).all()) and abs(float(r["t_fin"][2])) > 0.2
+            and not r["hook_errors"])
+
+
+def slam_ranks_gap(ranks):
+    """(raw trajectories all equal to rank 0's, largest corrected centre
+    gap to rank 0's in m)."""
+    raw = all(np.array_equal(r["c_raw"], ranks[0]["c_raw"]) for r in ranks)
+    return raw, max(float(np.abs(r["c"] - ranks[0]["c"]).max()) for r in ranks)
+
+
+def cli_rank(device, argv):
+    """One rank of the CLI, `run.main(argv)`, on `device` in the world
+    `launch` made (rank r > 0 writes into `--out-dir/rank<r>`), its
+    printed summary kept off stdout; returns the summary and K1's
+    launches during the run."""
+    import contextlib
+    import io
+
+    from viso_tpu_torch import run
+    from viso_tpu_torch.geometry import extract
+
+    extract.launch.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = run.main([*argv, "--device", str(device)])
+    return {"summary": summary, "k1_launches": extract.launch.launches}
+
+
 def engine_ok(r) -> bool:
     return r["ate_single"] < ENGINE_ATE_M and r["ate_dist"] < ENGINE_ATE_M \
         and r["max_diff"] < ENGINE_DIFF_M
@@ -285,15 +382,35 @@ def ba_ok(r) -> bool:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--procs", type=int, default=2)
-    ap.add_argument("--engine", action="store_true",
-                    help="run the StereoVO engine with distribute_ba")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--engine", action="store_true",
+                      help="run the StereoVO engine with distribute_ba")
+    mode.add_argument("--slam", action="store_true",
+                      help="run the mesh dryrun's StereoSLAM with distribute_ba")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    fn = engine_rank if args.engine else ba_rank
-    results = launch(fn, args.procs, device=args.device)
+    from viso_tpu_torch.tools.bench_dist_ba import backend_for
+
+    fn = slam_rank if args.slam else engine_rank if args.engine else ba_rank
+    backend = backend_for(args.procs, args.device)
+    results = launch(fn, args.procs, device=args.device, backend=backend,
+                     timeout=300.0 if args.slam else 120.0)
+    print(f"{args.procs} ranks over {backend}", flush=True)
     ok = True
+    if args.slam:
+        raw_equal, gap = slam_ranks_gap(results)
+        print(f"SLAM ranks: raw trajectories equal {raw_equal}, corrected centres "
+              f"within {gap:.3g} m of rank 0's (limit {SLAM_RANK_GAP_M})", flush=True)
+        ok = raw_equal and gap <= SLAM_RANK_GAP_M
     for r in results:
-        if args.engine:
+        if args.slam:
+            good = slam_ok(r)
+            print(f"[rank {r['rank']}] SLAM world={r['world']} nodes={r['nodes']} "
+                  f"keyframes={r['keyframes']} window_bas={r['window_bas']} "
+                  f"solve={r['ba_solve']} t={r['t_fin'].tolist()} loops={r['loops']} "
+                  f"K1={r['k1_launches']} hook_errors={r['hook_errors']} ok={good}",
+                  flush=True)
+        elif args.engine:
             good = engine_ok(r)
             print(f"[rank {r['rank']}] ENGINE world={r['world']} ate_single="
                   f"{r['ate_single']:.4f} ate_dist={r['ate_dist']:.4f} "
@@ -304,7 +421,7 @@ def main(argv=None) -> int:
                   f"dist={r['final_cost']:.6g} ok={good}", flush=True)
         ok &= good
     if ok:
-        kind = "ENGINE" if args.engine else "BA"
+        kind = "SLAM" if args.slam else "ENGINE" if args.engine else "BA"
         print(f"MULTIPROCESS {kind} OK ({args.procs} processes, {args.device})")
     return 0 if ok else 1
 
