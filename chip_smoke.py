@@ -183,7 +183,32 @@ raises and exits non-zero:
      its second captured, every call bit-equal to `ba.solve_impl`, the
      all-reduce record restored after a replay, LM iters/s replayed
      against eager and one replay's CUDA-event ms;
- 15. one JSON line with the kernel records (`launches`: the kernel's
+ 15. the long-run SLAM path: (a) StereoSLAM on phase 6's cell with its
+     500 frames cycled LONG_CYCLES times (the configuration uncut:
+     256-entry loop database, retain_recent 64), past the database's
+     capacity and the pose graph's PCG threshold (node bucket 512):
+     frames/s (mean and median per frame after the warmup), the join
+     time, keyframes, nodes, loops and database inserts; per (node, edge)
+     bucket the eager solves' seconds on the worker, the capture's on the
+     dispatch thread and the route the LM's linear solver took (recorded
+     where it ran, `Routes`); the graph pools' bytes and
+     max_memory_allocated; a replayed solve of node buckets 64 and 512,
+     host ms, device ms and kernels. At least LONG_MIN_NODES nodes and
+     inserts, finite poses, no hook errors, a loop after the wrap and one
+     beyond the recency horizon (from - to > capacity), a replayed PCG
+     solve at bucket 512 whose camera centres lie within LONG_CPU_TOL_M of
+     its graph's solve on the CPU after a rigid alignment, its robust cost
+     within LONG_COST_RTOL of the CPU's, the run's insert sequence giving
+     a CPU `LoopDatabase` the same slots, node ids and insertion numbers,
+     every slot's device rows equal to its node's digest, the corrected
+     keyframe ATE below phase 6's bound; (b) a RING_NODES-node SE(3) and
+     Sim(3) graph (`synthetic.ring_graph`) through `solve_padded(...,
+     programs=Cache(dev))` three times (eager, captured, replayed): the
+     PCG route, the replay
+     within RING_REPLAY_TOL_M of the eager call, both within RING_CPU_TOL_M
+     (Sim(3) scales RING_CPU_LOG_S_TOL in log) of the CPU, the capture's
+     seconds and the replay's device ms and kernels;
+ 16. one JSON line with the kernel records (`launches`: the kernel's
      launches summed over the main paths it is on, each counted from 0
      just before its path and read just after; the times: K1 summed over
      a tracked frame's 6 calls, K2 over the tool's 12), then the last
@@ -341,6 +366,41 @@ BOOT_SOLVERS = ("eigh", "svd")
 # with and without the next refit's system).
 BOOT_PROGRAMS = 9
 STRICT_RAN = ["init_track", "twoview.initialize"]
+# Phase 15: phase 6's cell past the pose graph's PCG threshold and the loop
+# database's capacity. The orbit's 500 frames cycled (its frame 499 is frame
+# 0's pose, so a cycle goes on where the last ended) LONG_CYCLES times: a
+# keyframe gap is at most 8 frames (kf_max_gap), so a cycle adds at least 62
+# nodes and 6 cycles end past 370, with node bucket 512 (257 nodes and up,
+# the PCG route) from the fifth cycle on and the 256-entry database past
+# capacity from the fifth too. The run must reach LONG_MIN_NODES nodes and
+# database inserts. A replayed PCG solve against the same padded graph
+# solved eagerly on the CPU: camera centres within phase 9/13's bound for
+# the solves' `index_add_` atomics after a rigid alignment (Umeyama, no
+# scale), and the robust cost of the card's result within LONG_COST_RTOL
+# of the CPU's. Unaligned, these graphs' solutions are set only to
+# millimetres: their soft mode is a turn of the graph about its gauge node
+# (0.007-0.07 degrees), which the cost does not see. An H100 read, over
+# the 34 replayed PCG solves of one run, 5.4e-5 to 6.7e-3 m unaligned
+# (17 above 1e-3), 3.1e-5 to 5.8e-4 m aligned and costs 1.5e-7 to 3.6e-5
+# apart, against 4.2e-3 to 0.295 for the graph as it went in; two eager
+# solves of one graph on the card part by up to 1.3e-3 m, and on the CPU
+# the JAX package's PCG and dense solves of one such graph by 5.3e-3 m.
+# The last LONG_CPU_SOLVES are solved on the CPU and printed, the last one
+# held.
+LONG_CYCLES = 6
+LONG_MIN_NODES = 300
+LONG_PCG_BUCKET = 512
+LONG_CPU_TOL_M = 1e-3
+LONG_COST_RTOL = 1e-4
+LONG_CPU_SOLVES = 3
+# Phase 15(b): graphs shaped like the 2048-node PCG tests (tests/test_ba.py,
+# tests/test_loop.py) at RING_NODES nodes, on the orbit's 2.5 m circle. The
+# replay against the eager call on the card, and both against the CPU (in
+# log for Sim(3) scales).
+RING_NODES = 300
+RING_REPLAY_TOL_M = 1e-4
+RING_CPU_TOL_M = 1e-3
+RING_CPU_LOG_S_TOL = 1e-3
 # The timings summed over a tracked frame's calls (K1) or the tool's sweep (K2).
 FRAME_KEYS = ("device_ms", "host_ms", "floor_ms", "bound_ms", "library_ms", "plain_ms",
               "entry_ms")
@@ -2338,6 +2398,401 @@ def dist_cli_phase(dev, card):
     return sum(r["k1_launches"] for r in ranks)
 
 
+class Routes:
+    """The pose-graph LM's linear solver, recorded where it runs: while
+    entered, `pose_graph.pcg_delta` and `dense_delta` (called once per LM
+    iteration, eagerly or while a program is captured; a replay runs no
+    Python) note "pcg" or "dense" on the thread that called them, inside a
+    `during` block of that thread; and every capture of a program of
+    `cache` (`Program.capture`) notes its key, its seconds on the host
+    clock and the routes its solve took (`captured`: program -> (key,
+    seconds, routes)). A replay runs the route its capture took."""
+
+    def __init__(self, cache):
+        from viso_tpu_torch.backend import pose_graph
+        from viso_tpu_torch.slam import programs
+
+        self.pg, self.programs, self.cache = pose_graph, programs, cache
+        self.active: dict = {}     # thread ident -> routes noted in its `during` block
+        self.captured: dict = {}
+        self.real = (pose_graph.pcg_delta, pose_graph.dense_delta, programs.Program.capture)
+
+    def __enter__(self):
+        pcg, dense, capture = self.real
+
+        def noted(route, fn):
+            def call(*a, **kw):
+                routes = self.active.get(threading.get_ident())
+                if routes is not None:
+                    routes.append(route)
+                return fn(*a, **kw)
+            return call
+
+        def captured(prog):
+            if prog.cache is not self.cache:
+                return capture(prog)
+            t0 = time.perf_counter()
+            with self.during() as routes:
+                capture(prog)
+            key = next(k for k, p in self.cache.programs.items() if p is prog)
+            self.captured[prog] = (key, time.perf_counter() - t0, sorted(set(routes)))
+
+        self.pg.pcg_delta, self.pg.dense_delta = noted("pcg", pcg), noted("dense", dense)
+        self.programs.Program.capture = captured
+        return self
+
+    def __exit__(self, *exc):
+        self.pg.pcg_delta, self.pg.dense_delta, self.programs.Program.capture = self.real
+
+    @contextlib.contextmanager
+    def during(self):
+        """The routes taken on this thread inside the block (a list; an
+        inner block, a capture inside a solve, keeps its own)."""
+        me, routes = threading.get_ident(), []
+        outer = self.active.get(me)
+        self.active[me] = routes
+        try:
+            yield routes
+        finally:
+            if outer is None:
+                del self.active[me]
+            else:
+                self.active[me] = outer
+
+
+class LongRunRecorder:
+    """Phase 15(a). Records, on a StereoSLAM's loop worker: every
+    `LoopDatabase.add` (its arguments, among them the node id, the pose
+    and the digest's descriptors on the card, and the slot it wrote), and
+    every pose-graph solve: its nodes, edges, (node, edge) bucket, host
+    seconds, whether it replayed its program's capture, and its route
+    (`Routes`: noted as it ran eagerly, or its capture's); of each solve
+    replayed at node bucket LONG_PCG_BUCKET also its graph and result."""
+
+    def __init__(self, slam, routes):
+        self.inserts, self.solves, self.pcg_replays = [], [], []
+        db, cache, real_add, real_solve = (slam.loop_db, slam._loop_programs, slam.loop_db.add,
+                                           slam._solve)
+
+        def add(*a, **kw):
+            slot = real_add(*a, **kw)
+            self.inserts.append(dict(args=a, kw=kw, slot=slot))
+            return slot
+
+        def solve(K, debug):
+            graph = (list(slam.pg_R), list(slam.pg_t), list(slam.pg_edges))
+            before = {p: (p.calls, p.replays) for p in cache.programs.values()}
+            t0 = time.perf_counter()
+            with routes.during() as taken:
+                out = real_solve(K, debug)
+            seconds = time.perf_counter() - t0
+            # The one program this solve called (the worker and join()'s
+            # flush never solve at once; a drain's capture calls no program).
+            ((key, prog),) = [(k, p) for k, p in cache.programs.items()
+                              if k[0] == "pose_graph" and p.calls > before.get(p, (0, 0))[0]]
+            replay = prog.replays > before.get(prog, (0, 0))[1]
+            route = routes.captured[prog][2] if replay else sorted(set(taken))
+            self.solves.append(dict(nodes=K, edges=len(graph[2]), bucket=key[1:3],
+                                    seconds=seconds, kind="replay" if replay else "eager",
+                                    route=route))
+            if replay and key[1] == LONG_PCG_BUCKET:
+                self.pcg_replays.append(dict(graph=graph, R=out[1].copy(), t=out[2].copy(),
+                                             bucket=key[1:3]))
+            return out
+
+        db.add, slam._solve = add, solve
+
+
+def centres(s, R, t):
+    """Metric camera centres -(1/s) R^T t (numpy; s None for SE(3))."""
+    c = -np.einsum("kji,kj->ki", np.asarray(R, np.float64), np.asarray(t, np.float64))
+    return c if s is None else c / np.asarray(s, np.float64)[:, None]
+
+
+def check_eviction(torch, slam, rec, card):
+    """Phase 15(a). The run's insert sequence fed to a CPU `LoopDatabase`
+    (the engine's parameters and seed) gives the same slot at every insert
+    and the same node id and insertion number in every slot; every slot's
+    device rows (descriptors, their mask, the landmarks and their mask)
+    equal what the insert of the node stored there was given."""
+    from viso_tpu_torch.slam.loop_closure import LoopDatabase
+
+    db, p = slam.loop_db, slam.loop_params
+    cpu = LoopDatabase(p, seed=slam.cfg.seed + 1, device="cpu")
+    slots = [cpu.add(*r["args"], **dict(r["kw"], desc=r["kw"]["desc"].cpu()))
+             for r in rec.inserts]
+    same_slots = slots == [r["slot"] for r in rec.inserts]
+    same_ids = (np.array_equal(cpu.node_id, db.node_id)
+                and np.array_equal(cpu.insert_seq, db.insert_seq) and cpu.total == db.total)
+    by_node = {r["kw"]["node_id"]: r for r in rec.inserts}
+    bad = []
+    for slot in range(p.capacity):
+        r = by_node[int(db.node_id[slot])]
+        kps, kp_mask, pts, pts_ok = r["args"][1:5]
+        rows = (bit_equal(torch, db.desc[slot], r["kw"]["desc"])
+                and np.array_equal(db.desc_mask[slot].cpu().numpy(), kp_mask)
+                and np.array_equal(db.points_w_dev[slot].cpu().numpy(), pts)
+                and np.array_equal(db.points_ok_dev[slot].cpu().numpy(), pts_ok))
+        if not rows:
+            bad.append((slot, int(db.node_id[slot])))
+    recycled = sorted({r["slot"] for k, r in enumerate(rec.inserts)
+                       if k >= p.capacity and k >= len(rec.inserts) - p.retain_recent})
+    print(f"15(a) eviction: {len(rec.inserts)} inserts fed to a CPU LoopDatabase: same slot "
+          f"at every insert {same_slots}, same node_id and insert_seq per slot {same_ids}; "
+          f"device rows (desc, desc_mask, points_w_dev, points_ok_dev) equal to their node's "
+          f"digest in {p.capacity - len(bad)} of {p.capacity} slots, among them the "
+          f"{len(recycled)} slots recycled in the last {p.retain_recent} inserts [{card}]")
+    if not (same_slots and same_ids) or bad:
+        raise AssertionError(f"15(a) eviction: slots {same_slots}, ids {same_ids}, rows "
+                             f"unequal at (slot, node) {bad[:8]}")
+
+
+def profile_solve(torch, prog, label, card):
+    """A replay of a captured pose-graph program on its staged inputs:
+    host enqueue ms, device ms and kernels (`profiling.profile_stage`)."""
+    from viso_tpu_torch.slam import programs
+    from viso_tpu_torch.utils import profiling
+
+    args = programs.unflatten(prog.spec, prog.inputs)
+    r = profiling.profile_stage(label, lambda: prog(*args), reps=1)
+    print(f"{label}: host {r['host_ms']:.3f} ms, device {r['device_ms']:.3f} ms, "
+          f"{r['kernels']} kernels ({r['tries']} profiler windows), stream "
+          f"{r['stream_ms']:.3f} ms [{card}]")
+    if not (r["device_ms"] > 0 and r["kernels"] > 0):
+        raise AssertionError(f"{label}: no device time: {r}")
+    return r
+
+
+def cpu_solve_gaps(torch, pose_graph, metrics, rec):
+    """A recorded solve's result (`LongRunRecorder.pcg_replays`) against
+    the same padded graph solved eagerly on the CPU: the largest camera
+    centre gap before and after a rigid alignment of the card's centres
+    onto the CPU's, and the robust costs (on the CPU) of the card's result
+    and of the graph as it went in, relative to the CPU result's."""
+    pR, pt, edges = rec["graph"]
+    K = len(pR)
+    params = pose_graph.PGParams(iters=25)
+    out, _ = pose_graph.solve_padded(pR, pt, edges, params, device="cpu")
+    graph = pose_graph.pad_graph(pR, pt, edges, device="cpu")
+
+    def cost(R, t):
+        R = torch.cat([torch.from_numpy(np.asarray(R, np.float32)), graph.R[K:]])
+        t = torch.cat([torch.from_numpy(np.asarray(t, np.float32)), graph.t[K:]])
+        return float(pose_graph.compute_cost(graph._replace(R=R, t=t), params))
+
+    c_card = centres(None, rec["R"], rec["t"])
+    c_cpu = centres(None, out.R[:K].numpy(), out.t[:K].numpy())
+    _, R_a, t_a = metrics.umeyama_alignment(c_card, c_cpu, with_scale=False)
+    c_cpu_cost = cost(out.R[:K].numpy(), out.t[:K].numpy())
+    return dict(unaligned=float(np.abs(c_card - c_cpu).max()),
+                aligned=float(np.abs(c_card @ R_a.T + t_a - c_cpu).max()),
+                cost_rel=abs(cost(rec["R"], rec["t"]) - c_cpu_cost) / c_cpu_cost,
+                input_rel=(cost(np.stack(pR), np.stack(pt)) - c_cpu_cost) / c_cpu_cost)
+
+
+def long_slam_phase(torch, extract, orbit, Rs, ts, metrics, dev, card):
+    """Phase 15(a). StereoSLAM on phase 6's cell, its frames cycled
+    LONG_CYCLES times: past the loop database's capacity and the pose
+    graph's PCG threshold. Returns K1's launches during the run."""
+    from viso_tpu_torch.backend import pose_graph
+    from viso_tpu_torch.slam.full import StereoSLAM
+    from viso_tpu_torch.slam.loop_closure import LoopParams
+    from viso_tpu_torch.tools import diag_loops
+
+    n_frames = LONG_CYCLES * len(orbit)
+    gt_R, gt_t = (np.concatenate([x] * LONG_CYCLES) for x in (Rs, ts))
+    extract.launch.launches = 0
+    slam = StereoSLAM(diag_loops.stereo_config(), LoopParams(min_inliers=40, max_correction_m=4.0),
+                      device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start_bytes = torch.cuda.memory_allocated(dev)
+    cache = slam._loop_programs
+    dispatch = dispatch_stream(torch, dev)
+    try:
+        with Routes(cache) as routes:
+            rec = LongRunRecorder(slam, routes)
+            nxt = slam.to_device(*orbit[0])
+            per_frame = []
+            t0 = time.perf_counter()
+            for i in range(n_frames):
+                if i == SLAM_WARMUP:
+                    dispatch.synchronize()
+                    per_frame, t0 = [], time.perf_counter()
+                tf = time.perf_counter()
+                cur = nxt
+                nxt = slam.to_device(*orbit[(i + 1) % len(orbit)]) if i + 1 < n_frames else None
+                slam.process(*cur)
+                per_frame.append(time.perf_counter() - tf)
+            dispatch.synchronize()
+            elapsed = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            slam.join()
+            join_s = time.perf_counter() - t1
+            R_est, t_est = slam.trajectory()
+            launches = extract.launch.launches
+            peak = torch.cuda.max_memory_allocated(dev)
+            pools = graph_pools(torch, slam)
+        pg_R, pg_t, pg_frames = slam.graph_trajectory()
+        raw_R, raw_t = np.stack(slam.pg_raw_R), np.stack(slam.pg_raw_t)
+        n_kf = sum(r.is_keyframe for r in slam.results)
+        loops, errors, db = list(slam.loops), list(slam.hook_errors), slam.loop_db
+        n_timed = n_frames - SLAM_WARMUP
+        med = float(np.median(per_frame))
+        print(f"15(a) StereoSLAM long run, phase 6's cell cycled {LONG_CYCLES} times "
+              f"({n_frames} frames): {n_timed / elapsed:.3f} frames/s mean, {1.0 / med:.3f} "
+              f"frames/s median per frame ({1e3 * med:.3f} ms) over {n_timed} frames after "
+              f"{SLAM_WARMUP} warmup; join {join_s:.2f} s [{card}]")
+        print(f"15(a): {n_kf} keyframes, {len(pg_R)} pose-graph nodes, {len(slam.pg_edges)} "
+              f"edges, {len(loops)} loops, loop_db.total {db.total}, count {db.count} of "
+              f"capacity {slam.loop_params.capacity} (retain_recent "
+              f"{slam.loop_params.retain_recent})")
+        print("15(a) loops (from, to, inliers): "
+              + str([(lp["from"], lp["to"], lp["inliers"]) for lp in loops]))
+        buckets = sorted({s["bucket"] for s in rec.solves}
+                         | {v[0][1:3] for v in routes.captured.values()
+                            if v[0][0] == "pose_graph"})
+        for b in buckets:
+            mine = [s for s in rec.solves if s["bucket"] == b]
+            eager = [f"{s['seconds']:.3f}" for s in mine if s["kind"] == "eager"]
+            replay = [1e3 * s["seconds"] for s in mine if s["kind"] == "replay"]
+            caps = [(sec, r) for p, (k, sec, r) in routes.captured.items()
+                    if k[0] == "pose_graph" and k[1:3] == b]
+            print(f"15(a) bucket {b[0]} nodes x {b[1]} edges: routes "
+                  f"{sorted({x for s in mine for x in s['route']})}; eager solves on the worker "
+                  f"(s) {eager}; capture on the dispatch thread (s) "
+                  f"{[f'{sec:.3f}' for sec, _ in caps]} (route {[r for _, r in caps]}); "
+                  f"{len(replay)} replayed solves, median "
+                  f"{float(np.median(replay)) if replay else float('nan'):.3f} ms on the worker "
+                  f"[{card}]")
+        others = [(k[0], f"{sec:.3f}") for p, (k, sec, _) in routes.captured.items()
+                  if k[0] != "pose_graph"]
+        print(f"15(a) other loop programs' captures (s): {others} [{card}]")
+        print(f"15(a) programs: {pools[0]} of {pools[1]} captured; CUDA graph pools {pools[2]} "
+              f"bytes reserved, {pools[3]} allocated; max_memory_allocated {peak} bytes "
+              f"({start_bytes} allocated when the run began) [{card}]")
+        print(f"K1 launches during the long run: {launches}")
+
+        # The replayed solves of node buckets 64 and LONG_PCG_BUCKET.
+        captured = {k: p for p, (k, _, _) in routes.captured.items() if k[0] == "pose_graph"}
+        for nodes in (64, LONG_PCG_BUCKET):
+            keys = [k for k in captured if k[1] == nodes]
+            if keys:
+                k = max(keys, key=lambda k: captured[k].replays)
+                profile_solve(torch, captured[k],
+                              f"15(a) replayed solve {k[1]} nodes x {k[2]} edges", card)
+
+        # The last LONG_CPU_SOLVES replayed PCG solves against their padded
+        # graphs solved on the CPU; the last one is held.
+        gaps = None
+        for g in rec.pcg_replays[-LONG_CPU_SOLVES:]:
+            gaps = cpu_solve_gaps(torch, pose_graph, metrics, g)
+            print(f"15(a) replayed solve at bucket {g['bucket']} ({len(g['graph'][0])} nodes, "
+                  f"{len(g['graph'][2])} edges) against the CPU's eager solve of its graph: "
+                  f"camera centres {gaps['aligned']:.3e} m apart after a rigid alignment "
+                  f"(limit {LONG_CPU_TOL_M}), {gaps['unaligned']:.3e} m before; robust costs "
+                  f"{gaps['cost_rel']:.3e} apart, relative (limit {LONG_COST_RTOL}; the graph "
+                  f"as it went in {gaps['input_rel']:.3e} above the CPU's); held for the last "
+                  f"[{card}]")
+        check_eviction(torch, slam, rec, card)
+    finally:
+        slam.close()
+
+    gt_kf = metrics.camera_centers(gt_R[pg_frames], gt_t[pg_frames])
+    ate_kf = metrics.ate_rmse(metrics.camera_centers(pg_R, pg_t), gt_kf, align=True,
+                              with_scale=False)
+    ate_raw = metrics.ate_rmse(metrics.camera_centers(raw_R, raw_t), gt_kf, align=True,
+                               with_scale=False)
+    ate = metrics.ate_rmse(metrics.camera_centers(R_est, t_est),
+                           metrics.camera_centers(gt_R, gt_t), align=True, with_scale=False)
+    print(f"15(a) ATE (no scale alignment): corrected keyframes {ate_kf:.6f} m (limit "
+          f"{SLAM_ATE_LIMIT_M} m), raw keyframes {ate_raw:.6f} m, every frame {ate:.6f} m")
+    cap = slam.loop_params.capacity
+    pcg_solves = [s for s in rec.solves if s["bucket"][0] == LONG_PCG_BUCKET
+                  and s["kind"] == "replay" and s["route"] == ["pcg"]]
+    failed = {
+        "finite poses": len(R_est) == n_frames and np.isfinite(R_est).all()
+        and np.isfinite(t_est).all(),
+        "no hook errors": not errors,
+        f">= {LONG_MIN_NODES} nodes and inserts": len(pg_R) >= LONG_MIN_NODES
+        and db.total >= LONG_MIN_NODES,
+        "database past capacity": db.total > cap and db.count == cap,
+        "a loop after the wrap": any(lp["from"] >= cap for lp in loops),
+        "a loop beyond the recency horizon": any(lp["from"] - lp["to"] > cap for lp in loops),
+        "a replayed PCG solve at bucket 512": bool(pcg_solves),
+        "the replayed PCG solve on the CPU": gaps is not None
+        and gaps["aligned"] <= LONG_CPU_TOL_M and gaps["cost_rel"] <= LONG_COST_RTOL,
+        "corrected keyframe ATE": ate_kf < SLAM_ATE_LIMIT_M,
+        "K1 launched": launches > 0,
+    }
+    failed = [k for k, ok in failed.items() if not ok]
+    if errors:
+        print(f"15(a) first hook error: {errors[0]!r}")
+    if failed:
+        raise AssertionError(f"15(a) failed: {failed}")
+    print(f"15(a): {len(pcg_solves)} replayed PCG solves at bucket {LONG_PCG_BUCKET}")
+    return launches
+
+
+def ring_phase(torch, dev, card):
+    """Phase 15(b). A RING_NODES-node SE(3) graph and a Sim(3) one, each
+    solved three times through `solve_padded(..., programs=Cache(dev))` on
+    this thread (its first call eager, its second captured and replayed,
+    its third replayed): the replay against the eager call, both against
+    the CPU's eager solve, the route each took, and the replay's host ms,
+    device ms and kernels."""
+    from viso_tpu_torch.backend import pose_graph, pose_graph_sim3
+    from viso_tpu_torch.data.synthetic import ring_graph
+    from viso_tpu_torch.slam import programs
+
+    for label, mod, sim3 in (("SE(3)", pose_graph, False), ("Sim(3)", pose_graph_sim3, True)):
+        args, c_true = ring_graph(RING_NODES, sim3, seed=3)
+        params = mod.PGParams(iters=25)
+        cache = programs.Cache(dev)
+        fields = ("s", "R", "t") if sim3 else ("R", "t")
+
+        def node_centres(out):
+            x = {f: getattr(out, f)[:RING_NODES].cpu().numpy() for f in fields}
+            return x.get("s"), centres(x.get("s"), x["R"], x["t"])
+
+        results, seconds = [], []
+        with Routes(cache) as routes:
+            for call in range(3):
+                t0 = time.perf_counter()
+                with routes.during() as taken:
+                    out, info = mod.solve_padded(*args, params, device=dev, programs=cache)
+                results.append(node_centres(out))
+                seconds.append(time.perf_counter() - t0)
+                if call == 0:
+                    eager_route = sorted(set(taken))
+            ((key, prog),) = cache.programs.items()
+            _, capture_s, capture_route = routes.captured[prog]
+            replays = prog.replays
+        cpu, _ = mod.solve_padded(*args, params, device="cpu")
+        (s_e, c_e), (s_r, c_r), (s_c, c_c) = results[0], results[2], node_centres(cpu)
+        replay_gap = float(np.abs(c_r - c_e).max())
+        cpu_gap = max(float(np.abs(c - c_c).max()) for c in (c_e, c_r))
+        log_gap = (max(float(np.abs(np.log(s) - np.log(s_c)).max()) for s in (s_e, s_r))
+                   if sim3 else 0.0)
+        print(f"15(b) {label} {RING_NODES} nodes -> bucket {key[1]} nodes x {key[2]} edges: "
+              f"eager call route {eager_route}, captured route {capture_route}, "
+              f"{replays} replays; calls {[f'{x:.3f}' for x in seconds]} s (the second "
+              f"holds the capture, {capture_s:.3f} s); final cost "
+              f"{float(info['final_cost']):.6g} from {float(info['initial_cost']):.6g}; true "
+              f"centres off by {float(np.abs(c_r - c_true).max()):.3e} m [{card}]")
+        print(f"15(b) {label}: replay against the eager call {replay_gap:.3e} m (limit "
+              f"{RING_REPLAY_TOL_M}); card against the CPU {cpu_gap:.3e} m (limit "
+              f"{RING_CPU_TOL_M})" + (f", scales {log_gap:.3e} in log (limit "
+                                       f"{RING_CPU_LOG_S_TOL})" if sim3 else "") + f" [{card}]")
+        profile_solve(torch, prog, f"15(b) {label} replayed solve {key[1]}x{key[2]}", card)
+        if not (key[1] == LONG_PCG_BUCKET and eager_route == capture_route == ["pcg"]
+                and prog.graph is not None and replays == 2
+                and replay_gap <= RING_REPLAY_TOL_M and cpu_gap <= RING_CPU_TOL_M
+                and log_gap <= RING_CPU_LOG_S_TOL):
+            raise AssertionError(f"15(b) {label}: bucket {key[1:3]}, routes {eager_route} / "
+                                 f"{capture_route}, replays {replays}, gaps {replay_gap}, "
+                                 f"{cpu_gap}, {log_gap}")
+
+
 def main() -> int:
     # The run uses one card: show torch only the first visible one, so the
     # device count in the last line is the number of cards the run used.
@@ -2539,7 +2994,15 @@ def main() -> int:
     boot_k1 = bootstrap_phase(torch, extract, mono_frames, dev, card)
     print(f"phase 14 wall {time.perf_counter() - t0:.1f} s")
 
-    # Phase 15: results.
+    # Phase 15: the long run, then both pose graphs at bucket 512.
+    t0 = time.perf_counter()
+    long_k1 = long_slam_phase(torch, extract, orbit, orbit_Rs, orbit_ts, metrics, dev, card)
+    t1 = time.perf_counter()
+    ring_phase(torch, dev, card)
+    print(f"phase 15 wall {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f} s, (b) "
+          f"{time.perf_counter() - t1:.1f} s)")
+
+    # Phase 16: results.
     print(f"total wall {time.perf_counter() - t_start:.1f} s")
     # ms, plain_ms, bound_ms, library_ms: device times (CUDA graph replay),
     # K1 summed over a tracked frame's 6 calls, K2 over the tool's 12 calls.
@@ -2557,7 +3020,7 @@ def main() -> int:
         record("extract_windows", "viso_tpu_torch/csrc/extract_windows.cu",
                "viso_tpu/geometry/extract_pallas.py:64",
                launches + slam_k1 + mono_k1 + cli_k1 + mono_slam_k1 + dist_k1 + tools_k1
-               + boot_k1,
+               + boot_k1 + long_k1,
                max_err, k1_frame),
         record("extract_aligned", "viso_tpu_torch/csrc/extract_aligned.cu",
                "tools/bench_extract.py:37", k2["launches"], k2["max_abs_err"], k2),

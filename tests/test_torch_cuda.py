@@ -746,3 +746,44 @@ def test_device_synchronise_between_frames_meets_no_capture_on_cuda(cuda_device)
     assert all(p.graph is not None for p in progs.values() if p.calls >= 2)
     assert {"detect_match", "detect_dlt", "detect_dlt_sign", "detect_pnp", "pose_graph"} <= drained
     assert all(progs[n].replays >= 1 for n in ("detect_match", "detect_pnp", "digest"))
+
+
+@pytest.mark.cuda
+def test_bucket_512_solve_captured_then_replayed_on_cuda(cuda_device, monkeypatch):
+    """A 300-node SE(3) ring (`synthetic.ring_graph`: exact sequential
+    edges, 4 loop edges, a drifting start) through the loop layer's path,
+    `solve_padded(..., programs=Cache(card))`, three times on the cache's
+    own thread: the first call eager, the second captured and replayed,
+    the third replayed. Its program is node bucket 512's, the LM took the
+    PCG route in the eager call and in the capture (25 iterations each, no
+    dense step), and each replay's camera centres lie within 1e-4 m of the
+    eager call's (an H100 read 5.4e-6 m; the solve scatter-adds with
+    atomics, so not bit for bit)."""
+    from viso_tpu_torch.backend import pose_graph as pg
+    from viso_tpu_torch.data.synthetic import ring_graph
+    from viso_tpu_torch.slam import programs
+
+    routes = []
+    for name in ("pcg", "dense"):
+        real = getattr(pg, f"{name}_delta")
+
+        def noted(*a, _real=real, _name=name, **kw):
+            routes.append(_name)
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(pg, f"{name}_delta", noted)
+    K = 300
+    (R0, t0, edges), _ = ring_graph(K, seed=3)
+    cache = programs.Cache(cuda_device)
+    centres = []
+    for _ in range(3):
+        out, info = pg.solve_padded(R0, t0, edges, pg.PGParams(iters=25), device=cuda_device,
+                                    programs=cache)
+        R, t = out.R[:K].cpu().double(), out.t[:K].cpu().double()
+        centres.append(-torch.einsum("kji,kj->ki", R, t))
+        assert float(info["final_cost"]) < 1e-4 * float(info["initial_cost"])
+    ((key, prog),) = cache.programs.items()
+    assert key[:3] == ("pose_graph", 512, 512) and prog.graph is not None and prog.replays == 2
+    assert routes == ["pcg"] * 50
+    for c in centres[1:]:
+        assert float((c - centres[0]).abs().max()) <= 1e-4

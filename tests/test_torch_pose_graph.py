@@ -96,3 +96,92 @@ def test_bucketing_and_masked_padding():
     assert int(g.node_mask.sum()) == 20 and int(g.edge_mask.sum()) == 20
     # Padding nodes are never moved.
     np.testing.assert_array_equal(g.R[20:].numpy(), np.tile(np.eye(3, dtype=np.float32), (12, 1, 1)))
+
+
+@pytest.fixture
+def routes(monkeypatch):
+    """The LM's linear solver as it runs: "pcg" or "dense" for each call
+    of `pcg_delta` / `dense_delta` (one per LM iteration)."""
+    taken = []
+    for name in ("pcg", "dense"):
+        real = getattr(t_pg, f"{name}_delta")
+
+        def noted(*a, _real=real, _name=name, **kw):
+            taken.append(_name)
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(t_pg, f"{name}_delta", noted)
+    return taken
+
+
+def test_pcg_scales_to_2048_nodes(routes):
+    """tests/test_ba.py::test_pose_graph_pcg_scales_to_2048_nodes on the
+    port: a 2048-node circle of radius 20 m, exact sequential edges, 4
+    loop edges, each node's initial pose moved by a 2e-4 twist. The auto
+    solver routes to PCG (8 LM iterations of 128 CG iterations, no dense
+    step), the cost falls below 0.2 of its start and the worst rotation
+    error below the initial one's, as the reference asserts (its errors
+    in float64)."""
+    from viso_tpu_torch.geometry import se3
+
+    rng = np.random.default_rng(0)
+    K = 2048
+    ang = 2 * np.pi * np.arange(K) / K
+    xi = np.zeros((K, 6), np.float32)
+    xi[:, 0], xi[:, 2], xi[:, 4] = 20 * np.sin(ang), 20 * (1 - np.cos(ang)), ang
+    R_true, t_true = se3.se3_exp(torch.from_numpy(xi))
+    ei = list(range(K - 1)) + [0, 1, 2, 3]
+    ej = list(range(1, K)) + [K - 4, K - 3, K - 2, K - 1]
+    R_ij, t_ij = se3.relative(R_true[ei], t_true[ei], R_true[ej], t_true[ej])
+    # The reference's draws, node 1 to K - 1 in turn; node 0 is the gauge.
+    dR, dt = se3.se3_exp(torch.from_numpy(rng.normal(0, 2e-4, (K - 1, 6)).astype(np.float32)))
+    R0, t0 = se3.compose(dR, dt, R_true[1:], t_true[1:])
+    R0, t0 = torch.cat([R_true[:1], R0]), torch.cat([t_true[:1], t0])
+    E = len(ei)
+    graph = t_pg.PoseGraph(R=R0, t=t0, node_mask=torch.ones(K, dtype=torch.bool),
+                           edge_i=torch.tensor(ei), edge_j=torch.tensor(ej), R_ij=R_ij,
+                           t_ij=t_ij, edge_weight=torch.ones(E), edge_mask=torch.ones(E, dtype=torch.bool))
+    params = t_pg.PGParams(iters=8, pcg_iters=128)
+    assert params.solver == "auto" and K > params.pcg_threshold
+    out, info = t_pg.solve(graph, params)
+    assert routes == ["pcg"] * 8
+    assert float(info["final_cost"]) < float(info["initial_cost"]) * 0.2
+
+    def rot_errors(R):
+        """Degrees, in float64: a float32 trace resolves 0.02 degrees, the
+        size of the initial errors."""
+        dR = torch.einsum("kij,klj->kil", R.double(), R_true.double())
+        return np.degrees(np.arccos(np.clip((torch.einsum("kii->k", dR).numpy() - 1) / 2, -1, 1)))
+
+    assert rot_errors(out.R)[1:].max() < rot_errors(graph.R)[1:].max()
+
+
+def test_cached_solve_routes_to_pcg_at_bucket_512_like_reference(routes):
+    """A 300-node graph shaped like the 2048-node one above (exact
+    sequential edges, 4 loop edges, a drifting start: `synthetic.
+    ring_graph`) through the loop layer's path, `solve_padded(...,
+    programs=Cache("cpu"))`, with the loop layer's parameters (25 LM
+    iterations of 96 CG iterations): its program is the (512, 512)
+    bucket's, every LM iteration takes the PCG route, and poses lie within
+    1e-4 of the JAX package's `solve_padded` (the PCG tolerance above;
+    measured 7.6e-6), the final cost within 1e-4 relative.
+
+    On the noisy chain above (`_loop_graph` at 300 nodes, 4 loop edges)
+    the packages part by 1.1e-4 in R and 2.4e-4 in t: after 96 CG
+    iterations each stops 5e-4-7e-4 m from the dense solve's optimum, in a
+    valley where the cost (0.002005 in both) no longer tells them apart."""
+    from viso_tpu_torch.data.synthetic import ring_graph
+    from viso_tpu_torch.slam import programs
+
+    (pR, pt, edges), _ = ring_graph(300, seed=3)
+    cache = programs.Cache("cpu")
+    out, info = t_pg.solve_padded(pR, pt, edges, t_pg.PGParams(iters=25), device="cpu",
+                                  programs=cache)
+    outj, infoj = j_pg.solve_padded(pR, pt, edges, j_pg.PGParams(iters=25))
+    assert [k[:3] for k in cache.programs] == [("pose_graph", 512, 512)]
+    assert routes == ["pcg"] * 25
+    K = len(pR)
+    np.testing.assert_allclose(out.R[:K].numpy(), np.asarray(outj.R)[:K], atol=1e-4)
+    np.testing.assert_allclose(out.t[:K].numpy(), np.asarray(outj.t)[:K], atol=1e-4)
+    np.testing.assert_allclose(float(info["final_cost"]), float(infoj["final_cost"]), rtol=1e-4)
+    assert float(info["final_cost"]) < 1e-4 * float(info["initial_cost"])

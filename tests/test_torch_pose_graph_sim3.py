@@ -176,3 +176,40 @@ def test_pcg_scales_to_2048_nodes():
     e1 = np.linalg.norm(centers(s_out, out.R[:K].numpy(), out.t[:K].numpy()) - c_gt,
                         axis=-1).max()
     assert e1 < 0.2 * e0, (e0, e1)
+
+
+def test_cached_solve_routes_to_pcg_at_bucket_512_like_reference(monkeypatch):
+    """A 300-node Sim(3) graph shaped like the 2048-node one above (exact
+    sequential edges with the true scale ratios, 4 loop edges, a drifting
+    start in pose and scale: `synthetic.ring_graph`) through the loop
+    layer's path, `solve_padded(..., programs=Cache("cpu"))`, with the loop
+    layer's parameters (25 LM iterations of 96 CG iterations): its program
+    is the (512, 512) bucket's, every LM iteration takes the PCG route, and
+    node scales lie within 1e-4 and metric centres within 1e-2 m of the JAX
+    package's `solve_padded` (this file's PCG tolerances; measured 1.5e-6
+    and 8.7e-6 m)."""
+    from viso_tpu_torch.backend import pose_graph as t_pg
+    from viso_tpu_torch.data.synthetic import ring_graph
+    from viso_tpu_torch.slam import programs
+
+    routes = []
+    for name in ("pcg", "dense"):
+        real = getattr(t_pg, f"{name}_delta")
+
+        def noted(*a, _real=real, _name=name, **kw):
+            routes.append(_name)
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(t_pg, f"{name}_delta", noted)
+    K = 300
+    args, _ = ring_graph(K, sim3=True, seed=3)
+    cache = programs.Cache("cpu")
+    out, info = t_pgs.solve_padded(*args, t_pgs.PGParams(), device="cpu", programs=cache)
+    outj, infoj = j_pgs.solve_padded(*args, j_pgs.PGParams())
+    assert [k[:3] for k in cache.programs] == [("pose_graph_sim3", 512, 512)]
+    assert routes == ["pcg"] * 25
+    s_out = out.s[:K].numpy()
+    np.testing.assert_allclose(s_out, np.asarray(outj.s)[:K], atol=1e-4)
+    c_j = centers(np.asarray(outj.s)[:K], np.asarray(outj.R)[:K], np.asarray(outj.t)[:K])
+    assert np.abs(centers(s_out, out.R[:K].numpy(), out.t[:K].numpy()) - c_j).max() < 1e-2
+    assert float(info["final_cost"]) < 1e-4 * float(info["initial_cost"])

@@ -249,6 +249,41 @@ def orbit_trajectory(n_frames, radius=2.0, total_angle=2 * np.pi, center=(0.0, 0
     return np.stack(Rs), np.stack(ts)
 
 
+def ring_graph(K, sim3=False, seed=0):
+    """A K-node pose graph shaped like the reference's 2048-node PCG tests
+    (`tests/test_ba.py`, `tests/test_loop.py`): nodes on a 2.5 m circle
+    (the SLAM orbit's radius) facing along it, exact sequential edges, 4
+    exact loop edges (i, K - 4 + i), and an initial guess the truth moved
+    by a random walk (1e-3 a step in rotation and translation and, for
+    Sim(3) nodes, in log scale, whose truth drifts 0.05 % a node). Node 0
+    stays at its truth (the gauge).
+
+    Returns (args, centres): `args` the leading arguments of
+    `pose_graph.solve_padded` (R, t, edges) or of
+    `pose_graph_sim3.solve_padded` (s, R, t, edges), as numpy; `centres`
+    the true camera centres (K, 3)."""
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(K) / K
+    R = np.stack([so3_exp([0.0, a, 0.0]).T for a in ang])
+    c = 2.5 * np.stack([np.sin(ang), np.zeros(K), -np.cos(ang)], -1)
+    s = 1.0005 ** np.arange(K) if sim3 else np.ones(K)
+    t = -np.einsum("kij,kj->ki", R, c) * s[:, None]
+    edges = []
+    for i, j in [(k - 1, k) for k in range(1, K)] + [(i, K - 4 + i) for i in range(4)]:
+        # S_i o S_j^-1
+        s_ij, R_ij = s[i] / s[j], R[i] @ R[j].T
+        e = (i, j, R_ij.astype(np.float32), (t[i] - s_ij * R_ij @ t[j]).astype(np.float32), 1.0)
+        edges.append(e[:2] + (float(s_ij),) + e[2:] if sim3 else e)
+    walk = np.cumsum(rng.normal(0, 1e-3, (K, 7)), axis=0)
+    walk[0] = 0.0
+    dR = np.stack([so3_exp(w) for w in walk[:, :3]])
+    ds = np.exp(walk[:, 6]) if sim3 else np.ones(K)
+    R0 = list(np.einsum("kij,kjl->kil", dR, R).astype(np.float32))
+    t0 = list((ds[:, None] * np.einsum("kij,kj->ki", dR, t) + walk[:, 3:6]).astype(np.float32))
+    args = ([float(x) for x in ds * s], R0, t0, edges) if sim3 else (R0, t0, edges)
+    return args, c
+
+
 def forward_trajectory(n_frames, step=0.15, yaw_rate=0.0):
     """World->cam pose sequence moving forward (+z) with optional yaw."""
     Rs, ts = [], []
