@@ -58,7 +58,8 @@ raises and exits non-zero:
      corridor over 500 frames, uint8 frames, BA backend "auto", so
      photometric): frames/s over frames 60-499 on the host clock, the
      scale-aligned ATE, scale drift and end rotation error, keyframes,
-     re-inits, the first tracking frame, synchronising calls, K1 launches
+     re-inits, the first tracking frame, synchronising calls (none in the
+     frame upload's code), K1 launches
      by call site (track, LK, photometric BA, templates), then one more
      keyframe frame under torch.profiler (its kernels and the device's
      busy share). It must reach tracking with a finite ATE below 4.0 m
@@ -126,7 +127,7 @@ raises and exits non-zero:
      (`viso_tpu_torch/tools/`): (a) tests/test_torch_stats_stress.py's
      corridor with every stats sample delayed 0-10 frames (rng 3, 60
      frames) and 10 frames (40 frames) through the real pinned copies and
-     events: the fixed delay at the engine's default hard lag (8 on the
+     events: the fixed delay at the engine's default hard lag (1 on the
      card), keyframe gaps within [2, 8] and no forced recovery; the
      random delay at the CPU's hard lag 4, gaps within [2, 8] and its ATE
      below 0.08 m (at 8 the JAX package breaks that bound too, given the
@@ -208,7 +209,32 @@ raises and exits non-zero:
      within RING_REPLAY_TOL_M of the eager call, both within RING_CPU_TOL_M
      (Sim(3) scales RING_CPU_LOG_S_TOL in log) of the CPU, the capture's
      seconds and the replay's device ms and kernels;
- 16. one JSON line with the kernel records (`launches`: the kernel's
+ 16. the ingestion path (`bench.py:649-840`), from PNG files in a
+     temporary directory through the native decoder's prefetch ring
+     (`data/native.Prefetcher`, ring 16 and 3 threads at 184x616, ring 8
+     at 376x1240) and `to_device` (pinned buffers, a non-blocking copy on
+     the current stream, one frame ahead): (a) phases 6, 7 and 4's
+     sequences written as bench.py writes them (`write_sequence`) and
+     read back, every image byte-equal and in order to the uint8 frame its
+     phase's engine ran on, and the ring's decode rate alone; (b) the
+     degraded 500-frame loop cell (`bench_long_slam(degrade=True)`: phase
+     6's configuration, `PhotometricNuisance(default_rng(77))` on the
+     host, the next pair staged before each process()): frames/s (mean and
+     median per frame), the host ms per frame of the ring wait, the
+     nuisance and the upload enqueue, synchronising calls per frame, join
+     time, loops, nodes; finite poses, no hook errors, at least one loop,
+     ATE over every frame and over the corrected keyframes below
+     DEGRADED_ATE_LIMIT_M (twice the JAX package's own CPU figure), no
+     sync in the upload's code, K1 launched; (c) phase 4's configuration
+     and sequence through the ring (`bench_e2e_fullres`): frames/s beside
+     phase 4's, ATE below 0.05 m, camera centres within FULLRES_GAP_M of
+     phase 4's run frame by frame with the same keyframes; (d) phase 4's frames as a
+     KITTI layout (`write_kitti`) through `run.main(["--dataset",
+     "kitti", ...])` on its default device in stereo and slam mode (a
+     checkpoint every 8 frames): the loader's intrinsics and baseline as
+     written, the device cuda, 44 log lines, ATE within phase 8's bounds;
+     the wall time of each part;
+ 17. one JSON line with the kernel records (`launches`: the kernel's
      launches summed over the main paths it is on, each counted from 0
      just before its path and read just after; the times: K1 summed over
      a tracked frame's 6 calls, K2 over the tool's 12), then the last
@@ -401,6 +427,24 @@ RING_NODES = 300
 RING_REPLAY_TOL_M = 1e-4
 RING_CPU_TOL_M = 1e-3
 RING_CPU_LOG_S_TOL = 1e-3
+# Phase 16: the ingestion path (`bench.py:649-840`). The prefetch ring at
+# the bench's settings: ring 16 and 3 decode threads at 184x616, ring 8 at
+# 376x1240. (b) the degraded loop cell, `bench_long_slam(degrade=True)`:
+# the exposure walk, noise and blur of `PhotometricNuisance` from
+# default_rng(77), one step a frame. Its ATE bound is twice the JAX
+# package's own figure for the same cell on a CPU (`bench.bench_long_slam(
+# degrade=True)`, unmodified, JAX 0.9.0 on 8 cores: 0.238115 m, 19 loops;
+# PERF.md), over every frame of the corrected trajectory as the bench
+# measures it. (c) the full-resolution ingest against phase 4's run, frame
+# by frame. (d) the CLI on a KITTI layout of
+# phase 4's frames: the loader's baseline against the one written (it
+# comes back as -P1[0, 3] / P1[0, 0]).
+INGEST_RING, INGEST_THREADS, FULLRES_RING = 16, 3, 8
+DEGRADE_SEED = 77
+JAX_DEGRADED_ATE_M = 0.238115
+DEGRADED_ATE_LIMIT_M = 2 * JAX_DEGRADED_ATE_M
+FULLRES_GAP_M = 1e-4
+KITTI_BASELINE, KITTI_BASELINE_TOL = 0.537, 1e-12
 # The timings summed over a tracked frame's calls (K1) or the tool's sweep (K2).
 FRAME_KEYS = ("device_ms", "host_ms", "floor_ms", "bound_ms", "library_ms", "plain_ms",
               "entry_ms")
@@ -894,6 +938,9 @@ def mono_phase(torch, extract, frames, Rs, ts, dev, card):
                 torch.cuda.set_sync_debug_mode(0)
         launches = extract.launch.launches
         syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
+        from viso_tpu_torch.slam import engine
+
+        in_upload = upload_syncs(engine, syncs)
         sync_sites = collections.Counter(
             f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in syncs).most_common(8)
         R_est, t_est = vo.trajectory()
@@ -933,7 +980,7 @@ def mono_phase(torch, extract, frames, Rs, ts, dev, card):
     print(f"MonocularVO: {n_kf} keyframes, {reinits} re-inits, first tracking frame "
           f"{states.index('tracking')}, {states.count('init')} frames in init, {len(syncs)} "
           f"synchronising calls over {MONO_FRAMES} frames (set_sync_debug_mode warn), by line "
-          f"{sync_sites} [{card}]")
+          f"{sync_sites}, {len(in_upload)} in the frame upload [{card}]")
     init = [f for f, r in zip(per_frame, vo.results) if r.state == "init"]
     print(f"MonocularVO init frames (bootstrap and re-init, their programs replayed): "
           f"{len(init)}, synchronising calls per init frame mean "
@@ -953,6 +1000,8 @@ def mono_phase(torch, extract, frames, Rs, ts, dev, card):
         raise AssertionError(f"mono ATE {ate:.4f} m over {MONO_ATE_LIMIT_M} m")
     if sites.counts.get("lk", 0) <= 0 or sites.counts.get("photo-BA", 0) <= 0:
         raise AssertionError(f"K1 never launched from LK or photometric BA: {sites.counts}")
+    if in_upload:
+        raise AssertionError(f"{len(in_upload)} synchronising calls in the frame upload")
     if launches != sum(sites.counts.values()):
         raise AssertionError("K1 launches not all attributed to a call site")
     return launches
@@ -1310,11 +1359,11 @@ def tools_phase(torch, extract, orbit, Rs, ts, headline, dev, card):
     extract.launch.launches = 0
     # (a) keyframe cadence under random stats delays (0-10 frames, rng 3)
     # and under a fixed 10-frame delay. The random run is held at the
-    # CPU's hard lag 4: at the card's default (`max(8, 2 *
-    # stats_max_lag)`, 8 here) the delay it lets decisions see breaks the
-    # test's 0.08 m in the JAX package too, given the same delays
+    # CPU's hard lag 4: at the reference's accelerator default (`max(8, 2
+    # * stats_max_lag)`, 8 here) the delay it lets decisions see breaks
+    # the test's 0.08 m in the JAX package too, given the same delays
     # (tests/stats_lag_parity.py, ROADMAP Queue 3). The fixed delay runs
-    # at the default.
+    # at the engine's default (1 on the card).
     class Fixed:
         def integers(self, lo, hi):
             return 10
@@ -2793,6 +2842,373 @@ def ring_phase(torch, dev, card):
                                  f"{cpu_gap}, {log_gap}")
 
 
+def as_u8(img):
+    """A frame as the engine uploads it (`BaseVO._upload`) and as png_io
+    writes it: clipped to [0, 255] and cast to uint8."""
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_pngs(png_io, paths, images):
+    """Each image as an 8-bit grayscale PNG at its path, 8 writers at a
+    time (zlib lets go of the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    for d in {os.path.dirname(p) for p in paths}:
+        os.makedirs(d, exist_ok=True)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(png_io.write_gray_png, paths, images))
+    return paths
+
+
+def write_sequence(png_io, root, frames):
+    """bench.py's PNG sequence layout: `L%04d.png` (and `R%04d.png` for
+    stereo pairs) under root. Returns the paths in the order the bench
+    reads them (left, right, left, ...) and the images in that order."""
+    stereo = isinstance(frames[0], tuple)
+    images = [x for pair in frames for x in pair] if stereo else list(frames)
+    sides = "LR" if stereo else "L"
+    paths = [os.path.join(root, f"{sides[k % len(sides)]}{k // len(sides):04d}.png")
+             for k in range(len(images))]
+    return write_pngs(png_io, paths, images), images
+
+
+def write_kitti(png_io, root, sequence, frames, intr, baseline, Rs, ts):
+    """A KITTI odometry layout of stereo `frames` under root:
+    `sequences/<sequence>/image_0|image_1/%06d.png`, `calib.txt` with P0
+    and P1 (P1[0, 3] = -fx * baseline) and `poses/<sequence>.txt`, one
+    cam->world [R | c] row a frame, the inverse of the world->cam (Rs, ts)
+    that `datasets.load_kitti` returns."""
+    seq = os.path.join(root, "sequences", sequence)
+    for side, cam in enumerate(("image_0", "image_1")):
+        write_pngs(png_io, [os.path.join(seq, cam, f"{i:06d}.png") for i in range(len(frames))],
+                   [pair[side] for pair in frames])
+    fx, fy, cx, cy = (float(intr[k]) for k in ("fx", "fy", "cx", "cy"))
+    with open(os.path.join(seq, "calib.txt"), "w") as f:
+        for name, tx in (("P0", 0.0), ("P1", -fx * baseline)):
+            row = (fx, 0.0, cx, tx, 0.0, fy, cy, 0.0, 0.0, 0.0, 1.0, 0.0)
+            f.write(f"{name}: " + " ".join(repr(float(v)) for v in row) + "\n")
+    R_wc = np.transpose(np.asarray(Rs, np.float64), (0, 2, 1))
+    c = -np.einsum("nij,nj->ni", R_wc, np.asarray(ts, np.float64))
+    os.makedirs(os.path.join(root, "poses"), exist_ok=True)
+    np.savetxt(os.path.join(root, "poses", f"{sequence}.txt"),
+               np.concatenate([R_wc, c[:, :, None]], -1).reshape(len(R_wc), 12), fmt="%.17g")
+
+
+def decode_all(native, paths, ring, threads):
+    """Every image of `paths` through the native prefetch ring, in order,
+    and the seconds the reads took on the host clock."""
+    pre = native.Prefetcher(paths, ring=ring, threads=threads)
+    try:
+        t0 = time.perf_counter()
+        images = list(pre)
+        return images, time.perf_counter() - t0
+    finally:
+        pre.close()
+
+
+def decode_phase(native, png_io, tmp, sequences, card):
+    """Phase 16(a). Each sequence (name, frames, ring) written as bench.py
+    writes it and read back through the ring: every decoded image equal,
+    byte for byte and in order, to the uint8 image its phase's engine ran
+    on, none missing; the ring's decode rate alone. Returns the paths of
+    each sequence."""
+    if not native.available():
+        raise AssertionError(f"the native decoder is unavailable: {native._load_error}")
+    out = {}
+    for name, frames, ring in sequences:
+        t0 = time.perf_counter()
+        paths, images = write_sequence(png_io, os.path.join(tmp, name.split()[0]), frames)
+        written = time.perf_counter() - t0
+        decoded, sec = decode_all(native, paths, ring, INGEST_THREADS)
+        equal = len(decoded) == len(images) and all(
+            d.shape == u.shape and np.array_equal(d, as_u8(u).astype(np.float32))
+            for d, u in zip(decoded, images))
+        per_frame = 2 if isinstance(frames[0], tuple) else 1
+        print(f"16(a) {name}: {len(images)} PNGs written in {written:.1f} s (host), "
+              f"{len(decoded)} read back through the ring (ring {ring}, {INGEST_THREADS} "
+              f"threads) in {sec:.3f} s: {len(decoded) / sec:.3f} images/s, "
+              f"{len(decoded) / per_frame / sec:.3f} frames/s; byte-equal to its phase's "
+              f"uint8 frames: {equal} [{card}]")
+        if not equal:
+            raise AssertionError(f"16(a) {name}: decoded frames differ from the frames written")
+        out[name.split()[0]] = paths
+    return out
+
+
+def upload_syncs(engine, syncs):
+    """The synchronising calls (sync-debug warnings) made in the frame
+    upload's code (`BaseVO._upload`, `engine.FrameStaging`)."""
+    import inspect
+
+    src = os.path.realpath(inspect.getsourcefile(engine))
+    spans = []
+    for obj in (engine.BaseVO._upload, engine.FrameStaging):
+        lines, start = inspect.getsourcelines(obj)
+        spans.append((start, start + len(lines)))
+    return [w for w in syncs if os.path.realpath(w.filename) == src
+            and any(a <= w.lineno < b for a, b in spans)]
+
+
+def degraded_phase(torch, extract, native, metrics, paths, Rs, ts, dev, card):
+    """Phase 16(b). The degraded 500-frame loop cell through the ring
+    (`bench_long_slam(degrade=True)`): each pair from the ring, degraded
+    on the host, cast to uint8 and staged one frame ahead through
+    `to_device` before this frame's process(). Returns K1's launches."""
+    from viso_tpu_torch.data import synthetic
+    from viso_tpu_torch.slam import engine
+    from viso_tpu_torch.slam.full import StereoSLAM
+    from viso_tpu_torch.slam.loop_closure import LoopParams
+    from viso_tpu_torch.tools import diag_loops
+
+    extract.launch.launches = 0
+    slam = StereoSLAM(diag_loops.stereo_config(), LoopParams(min_inliers=40, max_correction_m=4.0),
+                      device=dev)
+    pre = native.Prefetcher(paths, ring=INGEST_RING, threads=INGEST_THREADS)
+    nuisance = synthetic.PhotometricNuisance(np.random.default_rng(DEGRADE_SEED))
+    host = []   # per staged pair: ring wait, nuisance and cast, upload enqueue (s)
+
+    def next_pair():
+        t0 = time.perf_counter()
+        il, ir = next(pre), next(pre)
+        t1 = time.perf_counter()
+        nuisance.step()   # one exposure step a frame, noise per image
+        il = as_u8(nuisance.apply(il))
+        ir = as_u8(nuisance.apply(ir))
+        t2 = time.perf_counter()
+        staged = slam.to_device(il, ir)
+        host.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+        return staged
+
+    dispatch = dispatch_stream(torch, dev)
+    try:
+        nxt = next_pair()
+        for _ in range(SLAM_WARMUP):
+            cur, nxt = nxt, next_pair()
+            slam.process(*cur)
+        dispatch.synchronize()
+        n_warm = len(host)
+        per_frame = []
+        n_timed = SLAM_FRAMES - SLAM_WARMUP
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                for i in range(n_timed):
+                    cur = nxt
+                    tf = time.perf_counter()
+                    nxt = next_pair() if i < n_timed - 1 else None
+                    slam.process(*cur)
+                    per_frame.append(time.perf_counter() - tf)
+                dispatch.synchronize()
+                elapsed = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        t1 = time.perf_counter()
+        slam.join()
+        join_s = time.perf_counter() - t1
+        launches = extract.launch.launches
+        R_est, t_est = slam.trajectory()
+        kf_R, kf_t, kf_frames = slam.graph_trajectory()
+        nodes, loops, errors = len(slam.pg_R), list(slam.loops), list(slam.hook_errors)
+        n_kf = sum(r.is_keyframe for r in slam.results)
+    finally:
+        pre.close()
+        slam.close()
+    syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in syncs).most_common(6)
+    in_upload = upload_syncs(engine, syncs)
+    timed_host = 1e3 * np.asarray(host[n_warm:])
+    med = float(np.median(per_frame))
+    print(f"16(b) degraded 500-frame loop cell through the ring: {n_timed / elapsed:.3f} "
+          f"frames/s mean, {1.0 / med:.3f} frames/s median per frame ({1e3 * med:.3f} ms) over "
+          f"{n_timed} frames after {SLAM_WARMUP} warmup; join {join_s:.2f} s [{card}]")
+    print(f"16(b) host ms per timed frame outside process() (mean / median): ring wait "
+          f"{timed_host[:, 0].mean():.3f} / {np.median(timed_host[:, 0]):.3f}, nuisance and "
+          f"uint8 cast {timed_host[:, 1].mean():.3f} / {np.median(timed_host[:, 1]):.3f}, upload "
+          f"enqueue {timed_host[:, 2].mean():.3f} / {np.median(timed_host[:, 2]):.3f} [{card}]")
+    print(f"16(b) {len(syncs)} synchronising calls over {n_timed} timed frames "
+          f"({len(syncs) / n_timed:.3f} a frame; set_sync_debug_mode warn, the loop worker's "
+          f"included), {len(in_upload)} in the upload, by line {sites} [{card}]")
+    if len(R_est) != SLAM_FRAMES or not (np.isfinite(R_est).all() and np.isfinite(t_est).all()):
+        raise AssertionError("16(b): trajectory has the wrong length or non-finite poses")
+    ate = metrics.ate_rmse(metrics.camera_centers(R_est, t_est), metrics.camera_centers(Rs, ts),
+                           align=True, with_scale=False)
+    kf_ate = metrics.ate_rmse(metrics.camera_centers(kf_R, kf_t),
+                              metrics.camera_centers(Rs[kf_frames], ts[kf_frames]),
+                              align=True, with_scale=False)
+    print(f"16(b) {n_kf} keyframes, {nodes} pose-graph nodes, {len(loops)} loops closed "
+          f"{[(lp['from'], lp['to'], lp['inliers']) for lp in loops]}")
+    print(f"16(b) ATE (no scale alignment): {ate:.6f} m every frame, {kf_ate:.6f} m keyframes "
+          f"(corrected); limit {DEGRADED_ATE_LIMIT_M:.6f} m, twice the JAX package's "
+          f"{JAX_DEGRADED_ATE_M} m on a CPU")
+    print(f"K1 launches during the degraded run: {launches}")
+    if errors:
+        raise AssertionError(f"16(b): {len(errors)} keyframe hook errors, first: {errors[0]!r}")
+    if not loops:
+        raise AssertionError("16(b): no loop closed on the degraded orbit")
+    if not (ate < DEGRADED_ATE_LIMIT_M and kf_ate < DEGRADED_ATE_LIMIT_M):
+        raise AssertionError(f"16(b): ATE {ate:.4f} / {kf_ate:.4f} m over "
+                             f"{DEGRADED_ATE_LIMIT_M:.4f} m")
+    if in_upload:
+        raise AssertionError(f"16(b): {len(in_upload)} synchronising calls in the upload")
+    if launches <= 0:
+        raise AssertionError("16(b): the degraded run never launched the extraction kernel")
+    return launches
+
+
+def ring_feed(native, vo, paths, ring):
+    """bench.py's feed: each pair from the prefetch ring, cast to uint8 and
+    staged through `to_device`. Returns (next_pair, the ring)."""
+    pre = native.Prefetcher(paths, ring=ring, threads=INGEST_THREADS)
+
+    def next_pair():
+        il, ir = next(pre), next(pre)
+        return vo.to_device(as_u8(il), as_u8(ir))
+
+    return next_pair, pre
+
+
+def run_ahead(torch, vo, next_pair, n_frames, warmup):
+    """bench.py's loop: the next pair staged before this frame's process();
+    returns the seconds of the frames after `warmup`, synchronised."""
+    nxt = next_pair()
+    for i in range(n_frames):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        cur = nxt
+        nxt = next_pair() if i < n_frames - 1 else None
+        vo.process(*cur)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def fullres_phase(torch, extract, native, metrics, StereoVO, cfg, paths, Rs, ts, ref, dev,
+                  card):
+    """Phase 16(c). `bench_e2e_fullres` on the port: phase 4's
+    configuration and sequence through the ring (ring 8), one frame ahead,
+    12 warmup frames then 32 timed: frames/s and ATE beside phase 4's
+    clean run (`ref`), pre-staged from memory, and the camera centres
+    within FULLRES_GAP_M of that run frame by frame, with the same keyframe
+    decisions (the engine's stats reach each decision one frame old on the
+    card however the frames are fed). Returns K1's launches."""
+    extract.launch.launches = 0
+    vo = StereoVO(cfg, device=dev)
+    next_pair, pre = ring_feed(native, vo, paths, FULLRES_RING)
+    try:
+        elapsed = run_ahead(torch, vo, next_pair, N_FRAMES, WARMUP)
+        launches = extract.launch.launches
+        R, t = vo.trajectory()
+        kf = [r.is_keyframe for r in vo.results]
+    finally:
+        pre.close()
+        vo.close()
+    if len(R) != N_FRAMES or not (np.isfinite(R).all() and np.isfinite(t).all()):
+        raise AssertionError("16(c): trajectory has the wrong length or non-finite poses")
+    n_timed = N_FRAMES - WARMUP
+    c = metrics.camera_centers(R, t)
+    ate = metrics.ate_rmse(c, metrics.camera_centers(Rs, ts), align=True, with_scale=False)
+    gap = float(np.linalg.norm(c - metrics.camera_centers(ref["R"], ref["t"]), axis=-1).max())
+    bit_equal = np.array_equal(R, ref["R"]) and np.array_equal(t, ref["t"])
+    print(f"16(c) full-resolution ingest through the ring: {n_timed / elapsed:.3f} frames/s over "
+          f"{n_timed} frames after {WARMUP} warmup, against phase 4's pre-staged "
+          f"{ref['fps']:.3f} [{card}]")
+    print(f"16(c) against phase 4's clean run: max camera-centre gap {gap:.3g} m (limit "
+          f"{FULLRES_GAP_M}), poses bit-equal {bit_equal}, keyframe decisions equal "
+          f"{kf == ref['kf']} ({sum(kf)} keyframes at {[i for i, k in enumerate(kf) if k]}); "
+          f"ATE {ate:.6f} m (limit {ATE_LIMIT_M} m, phase 4 {ref['ate']:.6f} m)")
+    print(f"K1 launches during the full-resolution ingest: {launches}")
+    if not (gap <= FULLRES_GAP_M and kf == ref["kf"] and ate < ATE_LIMIT_M and launches > 0):
+        raise AssertionError(f"16(c): gap {gap} m, keyframes {kf} against {ref['kf']}, ATE "
+                             f"{ate}, K1 launches {launches}")
+    return launches
+
+
+def kitti_cli_phase(torch, extract, native, tmp, frames, Rs, ts, engine_ate, card):
+    """Phase 16(d). Phase 4's frames as KITTI sequence 00 (the headline's
+    intrinsics, baseline 0.537, ground truth in poses/00.txt) through the
+    CLI on its default device, in stereo mode and in slam mode with a
+    checkpoint every 8 frames. Returns K1's launches."""
+    from viso_tpu_torch import run
+    from viso_tpu_torch.data import datasets, png_io
+    from viso_tpu_torch.geometry import camera
+
+    if not native.available():
+        raise AssertionError(f"the native decoder is unavailable: {native._load_error}")
+    root = os.path.join(tmp, "kitti")
+    write_kitti(png_io, root, "00", frames, KITTI_FULL, KITTI_BASELINE, Rs, ts)
+    seq = datasets.load_kitti(root, "00")
+    intr_ok = tuple(seq.intrinsics) == tuple(camera.Intrinsics.create(**KITTI_FULL))
+    base_gap = abs(seq.baseline - KITTI_BASELINE)
+    gt_gap = float(np.linalg.norm(-np.einsum("nji,nj->ni", seq.gt_R, seq.gt_t)
+                                  + np.einsum("nji,nj->ni", Rs, ts), axis=-1).max())
+    print(f"16(d) load_kitti: intrinsics {tuple(seq.intrinsics)} as written {intr_ok}, baseline "
+          f"{seq.baseline!r} ({base_gap:.3g} from {KITTI_BASELINE}), ground truth {len(seq.gt_R)} "
+          f"poses, centres within {gt_gap:.3g} m of the written ones (float32)")
+    if not (intr_ok and base_gap <= KITTI_BASELINE_TOL and len(seq.gt_R) == N_FRAMES):
+        raise AssertionError(f"16(d): the KITTI loader read {seq.intrinsics}, {seq.baseline}")
+    launches = 0
+    for mode, extra in (("stereo", []), ("slam", ["--checkpoint-every", "8"])):
+        out = os.path.join(tmp, f"kitti_{mode}")
+        extract.launch.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary = run.main(["--dataset", "kitti", "--root", root, "--sequence", "00",
+                                "--mode", mode, "--out-dir", out, *extra])
+        launches += extract.launch.launches
+        with open(os.path.join(out, "frames.jsonl")) as f:
+            n_lines = sum(1 for _ in f)
+        files = sorted(os.listdir(out))
+        print(f"16(d) CLI --dataset kitti --mode {mode}: ATE {summary['ate_rmse_m']:.6f} m (limit "
+              f"{CLI_ATE_LIMITS[mode]}; phase 4's engine {engine_ate:.6f} m), "
+              f"{summary['keyframes']} keyframes, device {summary['device']}, {n_lines} log "
+              f"lines, K1 launches {extract.launch.launches}, {time.perf_counter() - t0:.1f} s, "
+              f"files {files} [{card}]")
+        need = {"trajectory.txt", "frames.jsonl", "summary.json"} | (
+            {"slam.npz"} if mode == "slam" else set())
+        if not need <= set(files) or n_lines != N_FRAMES:
+            raise AssertionError(f"16(d) --mode {mode}: files {files}, {n_lines} log lines")
+        if not (summary["device"].startswith("cuda") and np.isfinite(summary["ate_rmse_m"])
+                and summary["ate_rmse_m"] < CLI_ATE_LIMITS[mode]):
+            raise AssertionError(f"16(d) --mode {mode}: summary {summary}")
+    return launches
+
+
+def ingest_phase(torch, extract, metrics, StereoVO, cfg, headline, orbit, mono_frames, ref,
+                 dev, card):
+    """Phase 16: (a) to (d), each with its wall time. Returns K1's
+    launches over (b), (c) and (d)."""
+    import tempfile
+
+    from viso_tpu_torch.data import native, png_io
+
+    frames, Rs, ts = headline
+    orbit_frames, orbit_Rs, orbit_ts = orbit
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="viso_ingest_") as tmp:
+        t0 = time.perf_counter()
+        paths = decode_phase(native, png_io, tmp, [
+            ("orbit (phase 6) 184x616 stereo", orbit_frames, INGEST_RING),
+            ("mono (phase 7) 184x616", mono_frames, INGEST_RING),
+            ("headline (phase 4) 376x1240 stereo", frames, FULLRES_RING)], card)
+        walls["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        k1 = degraded_phase(torch, extract, native, metrics, paths["orbit"], orbit_Rs, orbit_ts,
+                            dev, card)
+        walls["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        k1 += fullres_phase(torch, extract, native, metrics, StereoVO, cfg, paths["headline"],
+                            Rs, ts, ref, dev, card)
+        walls["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        k1 += kitti_cli_phase(torch, extract, native, tmp, frames, Rs, ts, ref["ate"], card)
+        walls["d"] = time.perf_counter() - t0
+    print("phase 16 walls: " + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items()))
+    return k1
+
+
 def main() -> int:
     # The run uses one card: show torch only the first visible one, so the
     # device count in the last line is the number of cards the run used.
@@ -2919,6 +3335,9 @@ def main() -> int:
     per_frame = sorted(b - a for a, b in zip(stamps, stamps[1:]))
     ate = ate_of(vo, metrics, Rs, ts)
     n_kf = sum(r.is_keyframe for r in vo.results)
+    # Phase 16(c) prints the ingest through the ring beside this run.
+    R4, t4 = vo.trajectory()
+    ref4 = dict(R=R4, t=t4, kf=[r.is_keyframe for r in vo.results], fps=fps, ate=ate)
     vo.close()
     print(f"StereoVO headline: {fps:.3f} frames/s over {len(timed)} frames after "
           f"{WARMUP} warmup, {n_kf} keyframes in {N_FRAMES} frames [{card}]")
@@ -3002,7 +3421,13 @@ def main() -> int:
     print(f"phase 15 wall {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f} s, (b) "
           f"{time.perf_counter() - t1:.1f} s)")
 
-    # Phase 16: results.
+    # Phase 16: the ingestion path, from PNG files through the ring.
+    t0 = time.perf_counter()
+    ingest_k1 = ingest_phase(torch, extract, metrics, StereoVO, cfg, (frames, Rs, ts),
+                             (orbit, orbit_Rs, orbit_ts), mono_frames, ref4, dev, card)
+    print(f"phase 16 wall {time.perf_counter() - t0:.1f} s")
+
+    # Phase 17: results.
     print(f"total wall {time.perf_counter() - t_start:.1f} s")
     # ms, plain_ms, bound_ms, library_ms: device times (CUDA graph replay),
     # K1 summed over a tracked frame's 6 calls, K2 over the tool's 12 calls.
@@ -3020,7 +3445,7 @@ def main() -> int:
         record("extract_windows", "viso_tpu_torch/csrc/extract_windows.cu",
                "viso_tpu/geometry/extract_pallas.py:64",
                launches + slam_k1 + mono_k1 + cli_k1 + mono_slam_k1 + dist_k1 + tools_k1
-               + boot_k1 + long_k1,
+               + boot_k1 + long_k1 + ingest_k1,
                max_err, k1_frame),
         record("extract_aligned", "viso_tpu_torch/csrc/extract_aligned.cu",
                "tools/bench_extract.py:37", k2["launches"], k2["max_abs_err"], k2),

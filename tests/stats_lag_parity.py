@@ -11,8 +11,9 @@ test_keyframe_cadence_under_random_delay`'s (the corridor of
 `default_rng(7)` at 192x256, `stats_max_lag=4`, `kf_min_gap=2`,
 `kf_max_gap=8`, every stats sample delayed 0-10 frames), with the delay
 drawn from `default_rng(seed)` for each seed (the test's own draw is
-seed 3) and `stats_hard_lag` pinned to each of `--lags` (8 is the
-accelerator default, `max(8, 2 * stats_max_lag)`; 4 the CPU's). Each
+seed 3) and `stats_hard_lag` pinned to each of `--lags` (8 is the JAX
+package's accelerator default, `max(8, 2 * stats_max_lag)`; 4 the CPU's;
+the port's card default is 1, `engine.default_stats_hard_lag`). Each
 package's run is built by its own test module (`_make_vo` /
 `make_vo`). Prints one JSON line per (lag, seed): the keyframe gaps and
 the ATE (m, rigid alignment), then one line per lag with the ATE's

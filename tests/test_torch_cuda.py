@@ -787,3 +787,98 @@ def test_bucket_512_solve_captured_then_replayed_on_cuda(cuda_device, monkeypatc
     assert routes == ["pcg"] * 50
     for c in centres[1:]:
         assert float((c - centres[0]).abs().max()) <= 1e-4
+
+
+def _upload_engine(device):
+    """A StereoVO on `multiprocess_ba`'s corridor (its configuration, its
+    frames) for the frame-upload tests."""
+    from viso_tpu_torch.slam.engine import StereoVO
+    from viso_tpu_torch.tools import multiprocess_ba
+
+    frames, _, _, intr_kw = multiprocess_ba.engine_frames()
+    return StereoVO(multiprocess_ba.engine_config(intr_kw), device=device), frames
+
+
+@pytest.mark.cuda
+def test_to_device_makes_no_synchronising_call_on_cuda(cuda_device):
+    """`to_device` of uint8 and float32 arrays under
+    `set_sync_debug_mode("error")` (the first upload pins a buffer, a later
+    one adds one): no synchronising call; the device tensors hold the
+    frames, cast as the engine casts them."""
+    vo, frames = _upload_engine(cuda_device)
+    try:
+        torch.cuda.synchronize()
+        staged = []
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for il, ir in frames:
+                staged.append(vo.to_device(np.clip(il, 0, 255).astype(np.uint8), ir))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        for (il, ir), (tl, tr) in zip(frames, staged):
+            assert tl.device.type == "cuda" and tl.dtype == tr.dtype == torch.uint8
+            assert np.array_equal(tl.cpu().numpy(), np.clip(il, 0, 255).astype(np.uint8))
+            assert np.array_equal(tr.cpu().numpy(), np.clip(ir, 0, 255).astype(np.uint8))
+    finally:
+        vo.close()
+
+
+@pytest.mark.cuda
+def test_frames_staged_40_ahead_arrive_intact_on_cuda(cuda_device):
+    """40 frames staged ahead from ONE caller buffer rewritten after each
+    `to_device`, behind a long queue of work on the stream, so that every
+    copy is still in flight when the next frame is written: each device
+    tensor holds its own frame (no buffer is rewritten before its copy has
+    read it), and the engine made more buffers to hold them."""
+    vo, _ = _upload_engine(cuda_device)
+    rng = np.random.default_rng(3)
+    frames = [rng.integers(0, 256, (376, 1240), dtype=np.uint8) for _ in range(40)]
+    buf = np.empty_like(frames[0])
+    try:
+        x = torch.rand((2048, 2048), device=cuda_device)
+        for _ in range(50):   # keeps the stream busy behind the copies
+            x = x @ x
+            x = x / x.norm()
+        staged = []
+        for f in frames:
+            buf[...] = f
+            staged.append(vo.to_device(buf, buf)[0])
+        assert len(vo._staging.slots) >= 2
+        torch.cuda.synchronize()
+        for f, t in zip(frames, staged):
+            assert np.array_equal(t.cpu().numpy(), f)
+    finally:
+        vo.close()
+
+
+@pytest.mark.cuda
+def test_no_pinned_allocation_inside_a_capture_on_cuda(cuda_device, monkeypatch):
+    """The upload runs, and pins its buffers, only outside a capture: over
+    a run staged one frame ahead and one fed arrays through process()
+    (every program captured on the way), no upload runs while the current
+    stream captures."""
+    from viso_tpu_torch.slam import engine
+
+    made = []
+    real = engine.FrameStaging.upload
+
+    def noted(self, a, device):
+        made.append(torch.cuda.is_current_stream_capturing())
+        return real(self, a, device)
+
+    monkeypatch.setattr(engine.FrameStaging, "upload", noted)
+    vo, frames = _upload_engine(cuda_device)
+    try:
+        nxt = vo.to_device(*frames[0])
+        for i in range(len(frames)):
+            cur = nxt
+            nxt = vo.to_device(*frames[i + 1]) if i + 1 < len(frames) else None
+            vo.process(*cur)
+        for il, ir in frames:
+            vo.process(il, ir)
+        torch.cuda.synchronize()
+        captured = [n for n, p in vo._kernels.items() if p.graph is not None]
+    finally:
+        vo.close()
+    assert len(made) >= 4 * len(frames) and not any(made) and captured, (made, captured)

@@ -19,7 +19,7 @@ import torch
 
 from viso_tpu_torch.data import synthetic
 from viso_tpu_torch.geometry import camera
-from viso_tpu_torch.slam.engine import StereoVO, VOConfig
+from viso_tpu_torch.slam.engine import StereoVO, VOConfig, default_stats_hard_lag
 from viso_tpu_torch.utils import metrics
 from viso_tpu_torch.utils.debug import delay_stats
 
@@ -130,3 +130,52 @@ def test_staleness_never_rolls_back_decisions(corridor):
     # No forced recovery should ever have fired on this clean sequence.
     assert getattr(vo, "_lost_count", 0) == 0
     vo.close()
+
+
+@pytest.mark.parametrize("max_lag", [2, 4, 8])
+def test_default_hard_lag_on_each_device(max_lag):
+    """The CPU keeps the reference's `max(2, stats_max_lag)`; on the card a
+    decision waits for the previous frame's sample."""
+    assert default_stats_hard_lag("cpu", max_lag) == max(2, max_lag)
+    assert default_stats_hard_lag("cuda", max_lag) == 1
+
+
+def test_lost_tracking_recovers_when_samples_land_late_on_the_card():
+    """The card's host runs ahead of the device, so every stats sample
+    reaches it late. Here on the CPU every sample lands 8 frames late (a
+    host 8 frames ahead) and the engine's hard lag is the card's default.
+    The scenario is tools/diag_mono_seam.py's: MonocularVO with a keyframe
+    at least every 3 frames, then 12 frames of noise. Each decision must
+    read a sample at most one frame old, and the noise must force a
+    re-init. At the reference's accelerator lag (`max(8, 2 *
+    stats_max_lag)`, what the card used before) no sample ever postdates
+    the last keyframe: the lost count never moves and no re-init comes."""
+    from viso_tpu_torch.slam.engine import MonocularVO
+    from viso_tpu_torch.tools import diag_mono_seam
+
+    class Fixed:
+        def integers(self, lo, hi):
+            return 8
+
+    imgs, _, _ = diag_mono_seam.scenario(36)
+    noise = np.random.default_rng(3)
+    for i in range(24, 36):
+        imgs[i] = noise.uniform(0, 255, imgs[i].shape).astype(np.float32)
+    cfg = VOConfig(
+        height=diag_mono_seam.H, width=diag_mono_seam.W, max_keyframes=6, max_landmarks=768,
+        num_features=192, detect_grid=(4, 6), fast_threshold=10.0, kf_min_gap=1,
+        kf_max_gap=3, kf_min_visible_frac=0.6, min_init_tracks=25,
+        disparity_squared_thresh=25.0, **diag_mono_seam.INTR,
+    )
+    vo = delay_stats(MonocularVO(cfg, device="cpu"), Fixed(), 8)
+    vo._stats_hard_lag = lambda: default_stats_hard_lag("cuda", cfg.stats_max_lag)
+    ages = []
+    try:
+        for img in imgs:
+            vo.process(img)
+            if vo.results[-1].state == "tracking" and hasattr(vo, "_stats_frame"):
+                ages.append(vo.frame_idx - vo._stats_frame)
+        assert ages and max(ages) <= 1, ages
+        assert vo.num_reinits >= 1
+    finally:
+        vo.close()

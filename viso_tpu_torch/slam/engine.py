@@ -24,7 +24,9 @@ The per-frame path of a tracking engine is branchless on device values:
 nothing in `track` reads a device scalar on the host. Per-frame stats
 reach the host through a non-blocking copy into pinned memory, consumed a
 fixed or opportunistic number of frames later (`stats_max_lag`,
-`stats_hard_lag`, `stats_deterministic`, as in the reference). The
+`stats_hard_lag`, `stats_deterministic`, as in the reference; on the
+card an opportunistic decision waits for the previous frame's sample,
+`default_stats_hard_lag`). The
 monocular bootstrap reads its gates on the host, as the reference does
 (`MonocularVO._try_initialize`): its init-chain LK (`init_track`) and
 the two-view initialization's segments run as programs of the engine's
@@ -308,10 +310,26 @@ class BaseVO:
         # in _last_track; pulling them is the caller's choice and cost.
         self.debug_overlay = False
         self._last_track = None
+        self._staging = FrameStaging()   # `to_device`'s pinned buffers
         if config.distribute_ba:
             self._mesh()   # a group the run cannot use fails here, not at a keyframe
 
     # -- helpers -------------------------------------------------------
+    def _upload(self, im):
+        """An image as a uint8 tensor on the engine's device that shares no
+        memory with the caller's array, as the reference's `jnp.asarray`
+        copy is immutable (a tensor is only moved). On CUDA through the
+        engine's `FrameStaging`: the host does not wait."""
+        if isinstance(im, torch.Tensor):
+            return im.to(self.device)
+        a = np.asarray(im)
+        if a.dtype != np.uint8:
+            a = np.clip(a, 0, 255).astype(np.uint8)
+        if self.device.type == "cuda":
+            return self._staging.upload(a, self.device)
+        # A copy: the caller may write into its array before process().
+        return torch.from_numpy(np.array(a, order="C"))
+
     def _next_kf_slot_peek(self) -> int:
         """Slot for the next keyframe; pops the oldest from kf_order if the
         window is full (the eviction happens in the insertion program)."""
@@ -652,15 +670,8 @@ class BaseVO:
         return final_cost
 
     def _stats_hard_lag(self) -> int:
-        hard = self.cfg.stats_hard_lag
-        if not hard:
-            # Fetches land sub-frame on the CPU; on an accelerator let them
-            # ride deeper before force-joining.
-            if self.device.type == "cpu":
-                hard = max(2, self.cfg.stats_max_lag)
-            else:
-                hard = max(8, 2 * self.cfg.stats_max_lag)
-        return hard
+        return self.cfg.stats_hard_lag or default_stats_hard_lag(self.device.type,
+                                                                 self.cfg.stats_max_lag)
 
     def _track_landmarks(self, img):
         """Run the track program; returns (ok_align (L,), refined_uv (L, 2),
@@ -687,12 +698,12 @@ class BaseVO:
             while q and q[0][1].done():
                 f, fetch = q.pop(0)
                 consumed = (f, fetch.result()[0])
-        if q and self.frame_idx - q[0][0] >= self._stats_hard_lag():
-            f, fetch = q.pop(0)
-            consumed = (f, fetch.result()[0])
-            while q and q[0][1].done():
+            if q and self.frame_idx - q[0][0] >= self._stats_hard_lag():
                 f, fetch = q.pop(0)
                 consumed = (f, fetch.result()[0])
+                while q and q[0][1].done():
+                    f, fetch = q.pop(0)
+                    consumed = (f, fetch.result()[0])
         if consumed is not None:
             self._stats_frame = consumed[0]
             n_tracked, n_points = (int(v) for v in consumed[1])
@@ -770,8 +781,10 @@ class StereoVO(BaseVO):
 
     def to_device(self, img_left, img_right):
         """Upload a stereo pair as uint8 tensors on the engine's device;
-        process() accepts the returned pair directly."""
-        return _upload(img_left, self.device), _upload(img_right, self.device)
+        process() accepts the returned pair directly. Call it one frame
+        ahead: on CUDA the copy is enqueued on the current stream and the
+        host does not wait for it (`FrameStaging`)."""
+        return self._upload(img_left), self._upload(img_right)
 
     def process(self, img_left, img_right) -> FrameResult:
         cfg = self.cfg
@@ -906,8 +919,9 @@ class MonocularVO(BaseVO):
         self.num_reinits = 0
 
     def to_device(self, img):
-        """Upload a frame as a uint8 tensor on the engine's device."""
-        return _upload(img, self.device)
+        """Upload a frame as a uint8 tensor on the engine's device (one
+        frame ahead, as StereoVO.to_device)."""
+        return self._upload(img)
 
     def process(self, img) -> FrameResult:
         cfg = self.cfg
@@ -1272,14 +1286,50 @@ def blend_recovery_scale(s_d, s_s, agree=2.5, lo=0.05, hi=20.0):
     return float(np.clip(s, lo, hi))
 
 
-def _upload(im, device):
-    """An image as a uint8 tensor on `device` (a tensor is only moved)."""
-    if isinstance(im, torch.Tensor):
-        return im.to(device)
-    a = np.asarray(im)
-    if a.dtype != np.uint8:
-        a = np.clip(a, 0, 255).astype(np.uint8)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+def default_stats_hard_lag(device_type: str, stats_max_lag: int) -> int:
+    """How old an opportunistic stats sample may grow before a decision
+    waits for it (`VOConfig.stats_hard_lag` 0). On the CPU a fetch lands
+    within its frame, so this only bounds a delayed one. On the card the
+    host runs ahead of the device (`to_device` does not wait), so every
+    sample would reach the host late: a decision at frame k waits for frame
+    k - 1's sample, which bounds the host's lead over the card to one frame
+    and makes the keyframe and lost-tracking decisions independent of how
+    far ahead the host got. A deeper lag (the reference's
+    `max(8, 2 * stats_max_lag)` on its accelerator) lets no sample postdate
+    a keyframe when keyframes come every few frames, and the engine then
+    never counts a lost frame nor takes a keyframe before `kf_max_gap`."""
+    if device_type == "cpu":
+        return max(2, stats_max_lag)
+    return 1
+
+
+class FrameStaging:
+    """Pinned host buffers that frames pass through on their way to the
+    card, each with the event recorded after its copy: a buffer is written
+    again only once that event has completed, and a new one is made while
+    every buffer's copy is in flight, so a caller may stage frames any
+    distance ahead. The copy is enqueued on the current stream, the one
+    process() enqueues on, and the host does not wait for it. Buffers are
+    made only in `to_device`, and process() makes its captures before it
+    uploads, so none is pinned during a capture. One pinned allocation a
+    frame from PyTorch's caching host allocator (`programs.host_tensors`)
+    would do the same, but where the SLAM loop worker pins memory too it
+    held the dispatch thread 2.7-5.9 ms a frame on average against 0.5-0.6
+    ms here (the degraded loop cell on an H100, `tests/upload_ab.py`)."""
+
+    def __init__(self):
+        self.slots: list = []   # (pinned flat uint8 tensor, torch.cuda.Event)
+
+    def upload(self, a: np.ndarray, device) -> torch.Tensor:
+        slot = next((s for s in self.slots if s[0].numel() >= a.nbytes and s[1].query()), None)
+        if slot is None:
+            slot = (torch.empty(a.nbytes, dtype=torch.uint8, pin_memory=True), torch.cuda.Event())
+            self.slots.append(slot)
+        host = slot[0][:a.nbytes].view(a.shape)
+        np.copyto(host.numpy(), a)
+        out = host.to(device, non_blocking=True)
+        slot[1].record(torch.cuda.current_stream(device))
+        return out
 
 
 def _pull_poses(results):

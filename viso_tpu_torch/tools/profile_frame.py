@@ -12,7 +12,8 @@ from the engine's state (`utils/profiling.profile_stage`, `--reps`
 calls after a warm-up):
 
   tiny dispatch+sync   one elementwise op and its synchronisation;
-  upload               one uint8 image to the device;
+  upload               one uint8 image to the device through the engine's
+                       pinned buffers (`to_device`'s path);
   track                the per-frame program as the engine runs it: the
                        replay of its captured CUDA graph
                        (`vo._program("track")`; on the CPU an eager call
@@ -116,7 +117,7 @@ def stats_fetch(vo, img, reps: int):
 def profile(device, reps: int = 5, height: int = H, width: int = W, frames=None) -> dict:
     """The tool's stages and process() timings on `device`; `frames`, the
     tool's rendered frames when the caller already has them."""
-    from viso_tpu_torch.slam.engine import PROGRAMS, StereoVO, _upload
+    from viso_tpu_torch.slam.engine import PROGRAMS, StereoVO
     from viso_tpu_torch.utils import profiling
 
     cfg = config(height, width)
@@ -144,7 +145,7 @@ def profile(device, reps: int = 5, height: int = H, width: int = W, frames=None)
                           *no_obs, False),
             "ba": (vo.map, cam_fixed, slot, vo.R, vo.t),
         }
-        stages = {"tiny dispatch+sync": lambda: x + 1, "upload": lambda: _upload(il8, device)}
+        stages = {"tiny dispatch+sync": lambda: x + 1, "upload": lambda: vo._upload(il8)}
         for name, a in args.items():
             stages[name] = lambda prog=vo._program(name), a=a: prog(*a)
             stages[name + "_eager"] = lambda fn=getattr(vo, PROGRAMS[name]), a=a: fn(*a)
