@@ -208,7 +208,18 @@ raises and exits non-zero:
      PCG route, the replay
      within RING_REPLAY_TOL_M of the eager call, both within RING_CPU_TOL_M
      (Sim(3) scales RING_CPU_LOG_S_TOL in log) of the CPU, the capture's
-     seconds and the replay's device ms and kernels;
+     seconds and the replay's device ms and kernels; (c) MonoSLAM on phase
+     9's cell (the orbit's left images, the configuration uncut) cycled
+     LONG_CYCLES times, past the database's capacity and the Sim(3)
+     graph's PCG threshold: (a)'s readings plus re-inits, the node scales'
+     range and each solve the health gate accepted or rejected with the
+     reason; at least LONG_MIN_NODES nodes and inserts, no hook error, a
+     loop after the wrap to a node stored after it, a replayed PCG solve
+     at bucket 512 within LONG_CPU_TOL_M (camera centres after a
+     similarity alignment), LONG_CPU_LOG_S_TOL (node scales in log) and
+     LONG_COST_RTOL of its graph's solve on the CPU, eviction held as in
+     (a), the corrected keyframe ATE within LONG_MONO_ATE_LIMIT_M and at
+     most LONG_MONO_OVER_RAW_M above the raw one;
  16. the ingestion path (`bench.py:649-840`), from PNG files in a
      temporary directory through the native decoder's prefetch ring
      (`data/native.Prefetcher`, ring 16 and 3 threads at 184x616, ring 8
@@ -427,6 +438,23 @@ RING_NODES = 300
 RING_REPLAY_TOL_M = 1e-4
 RING_CPU_TOL_M = 1e-3
 RING_CPU_LOG_S_TOL = 1e-3
+# Phase 15(c): phase 9's mono SLAM cell (the orbit's left images) cycled
+# LONG_CYCLES times, with phase 15(a)'s node count, PCG bucket and CPU
+# bounds; node scales also within phase 15(b)'s bound in log after the
+# CPU's solve of the same graph, camera centres after a similarity
+# alignment. The solve-health gate's node-scale range (MonoSLAM, as the
+# JAX package's `mono_full.py:334-337`). The corrected keyframe ATE: the
+# JAX package's own MonoSLAM on the same 3,000 frames misses phase 9's
+# 1.0 m (tests/mono_long_parity.py, JAX 0.9.0 on 8 CPU cores: 1.448187 m
+# corrected, 1.905618 m raw, 472 nodes, 154 loops; the port on that CPU
+# with the JAX draws: 1.342407 m, 1.674406 m raw), so the bound is twice
+# its figure, as phase 16(b)'s; and at most phase 9's 0.1 m above the raw
+# odometry's, which both packages meet on the CPU.
+LONG_CPU_LOG_S_TOL = RING_CPU_LOG_S_TOL
+LONG_MONO_SCALES = (0.2, 5.0)
+JAX_LONG_MONO_ATE_M = 1.448187
+LONG_MONO_ATE_LIMIT_M = 2 * JAX_LONG_MONO_ATE_M
+LONG_MONO_OVER_RAW_M = MONO_SLAM_OVER_RAW_M
 # Phase 16: the ingestion path (`bench.py:649-840`). The prefetch ring at
 # the bench's settings: ring 16 and 3 decode threads at 184x616, ring 8 at
 # 376x1240. (b) the degraded loop cell, `bench_long_slam(degrade=True)`:
@@ -2510,18 +2538,24 @@ class Routes:
 
 
 class LongRunRecorder:
-    """Phase 15(a). Records, on a StereoSLAM's loop worker: every
+    """Phase 15(a) and (c). Records, on a SLAM engine's loop worker: every
     `LoopDatabase.add` (its arguments, among them the node id, the pose
     and the digest's descriptors on the card, and the slot it wrote), and
     every pose-graph solve: its nodes, edges, (node, edge) bucket, host
-    seconds, whether it replayed its program's capture, and its route
-    (`Routes`: noted as it ran eagerly, or its capture's); of each solve
-    replayed at node bucket LONG_PCG_BUCKET also its graph and result."""
+    seconds, whether it replayed its program's capture, its route
+    (`Routes`: noted as it ran eagerly, or its capture's), what the
+    solve-health gate reads (the largest camera-centre jump and turn
+    against the previous solution, the node scales' range) and whether
+    the gate accepted it (it stored its solution); of each solve replayed
+    at node bucket LONG_PCG_BUCKET also its graph and result (node scales
+    too for a Sim(3) graph)."""
 
     def __init__(self, slam, routes):
         self.inserts, self.solves, self.pcg_replays = [], [], []
-        db, cache, real_add, real_solve = (slam.loop_db, slam._loop_programs, slam.loop_db.add,
-                                           slam._solve)
+        sim3 = hasattr(slam, "pg_s")
+        db, cache, real_add, real_solve, real_store = (
+            slam.loop_db, slam._loop_programs, slam.loop_db.add, slam._solve,
+            slam._store_solution)
 
         def add(*a, **kw):
             slot = real_add(*a, **kw)
@@ -2529,7 +2563,8 @@ class LongRunRecorder:
             return slot
 
         def solve(K, debug):
-            graph = (list(slam.pg_R), list(slam.pg_t), list(slam.pg_edges))
+            graph = dict(s=list(slam.pg_s) if sim3 else None, R=list(slam.pg_R),
+                         t=list(slam.pg_t), edges=list(slam.pg_edges))
             before = {p: (p.calls, p.replays) for p in cache.programs.values()}
             t0 = time.perf_counter()
             with routes.during() as taken:
@@ -2538,18 +2573,32 @@ class LongRunRecorder:
             # The one program this solve called (the worker and join()'s
             # flush never solve at once; a drain's capture calls no program).
             ((key, prog),) = [(k, p) for k, p in cache.programs.items()
-                              if k[0] == "pose_graph" and p.calls > before.get(p, (0, 0))[0]]
+                              if k[0].startswith("pose_graph")
+                              and p.calls > before.get(p, (0, 0))[0]]
             replay = prog.replays > before.get(prog, (0, 0))[1]
             route = routes.captured[prog][2] if replay else sorted(set(taken))
-            self.solves.append(dict(nodes=K, edges=len(graph[2]), bucket=key[1:3],
+            s_old = np.asarray(graph["s"] if sim3 else np.ones(K), np.float64)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                jump = np.linalg.norm(centres(out[0], out[1], out[2])
+                                      - centres(s_old, graph["R"], graph["t"]), axis=-1).max()
+            tr = np.einsum("nij,nij->n", out[1], np.stack(graph["R"]))
+            self.solves.append(dict(nodes=K, edges=len(graph["edges"]), bucket=key[1:3],
                                     seconds=seconds, kind="replay" if replay else "eager",
-                                    route=route))
+                                    route=route, jump=float(jump),
+                                    ang=float(np.arccos(np.clip((tr - 1) / 2, -1, 1)).max()),
+                                    s_range=(float(np.min(out[0])), float(np.max(out[0]))),
+                                    accepted=False))
             if replay and key[1] == LONG_PCG_BUCKET:
-                self.pcg_replays.append(dict(graph=graph, R=out[1].copy(), t=out[2].copy(),
+                self.pcg_replays.append(dict(graph=graph, s=out[0].copy() if sim3 else None,
+                                             R=out[1].copy(), t=out[2].copy(),
                                              bucket=key[1:3]))
             return out
 
-        db.add, slam._solve = add, solve
+        def store(*a):
+            self.solves[-1]["accepted"] = True
+            return real_store(*a)
+
+        db.add, slam._solve, slam._store_solution = add, solve, store
 
 
 def centres(s, R, t):
@@ -2558,8 +2607,8 @@ def centres(s, R, t):
     return c if s is None else c / np.asarray(s, np.float64)[:, None]
 
 
-def check_eviction(torch, slam, rec, card):
-    """Phase 15(a). The run's insert sequence fed to a CPU `LoopDatabase`
+def check_eviction(torch, slam, rec, card, label="15(a)"):
+    """Phase 15(a) and (c). The run's insert sequence fed to a CPU `LoopDatabase`
     (the engine's parameters and seed) gives the same slot at every insert
     and the same node id and insertion number in every slot; every slot's
     device rows (descriptors, their mask, the landmarks and their mask)
@@ -2586,13 +2635,13 @@ def check_eviction(torch, slam, rec, card):
             bad.append((slot, int(db.node_id[slot])))
     recycled = sorted({r["slot"] for k, r in enumerate(rec.inserts)
                        if k >= p.capacity and k >= len(rec.inserts) - p.retain_recent})
-    print(f"15(a) eviction: {len(rec.inserts)} inserts fed to a CPU LoopDatabase: same slot "
+    print(f"{label} eviction: {len(rec.inserts)} inserts fed to a CPU LoopDatabase: same slot "
           f"at every insert {same_slots}, same node_id and insert_seq per slot {same_ids}; "
           f"device rows (desc, desc_mask, points_w_dev, points_ok_dev) equal to their node's "
           f"digest in {p.capacity - len(bad)} of {p.capacity} slots, among them the "
           f"{len(recycled)} slots recycled in the last {p.retain_recent} inserts [{card}]")
     if not (same_slots and same_ids) or bad:
-        raise AssertionError(f"15(a) eviction: slots {same_slots}, ids {same_ids}, rows "
+        raise AssertionError(f"{label} eviction: slots {same_slots}, ids {same_ids}, rows "
                              f"unequal at (slot, node) {bad[:8]}")
 
 
@@ -2612,38 +2661,111 @@ def profile_solve(torch, prog, label, card):
     return r
 
 
-def cpu_solve_gaps(torch, pose_graph, metrics, rec):
+def cpu_solve_gaps(torch, metrics, rec):
     """A recorded solve's result (`LongRunRecorder.pcg_replays`) against
     the same padded graph solved eagerly on the CPU: the largest camera
-    centre gap before and after a rigid alignment of the card's centres
-    onto the CPU's, and the robust costs (on the CPU) of the card's result
-    and of the graph as it went in, relative to the CPU result's."""
-    pR, pt, edges = rec["graph"]
-    K = len(pR)
-    params = pose_graph.PGParams(iters=25)
-    out, _ = pose_graph.solve_padded(pR, pt, edges, params, device="cpu")
-    graph = pose_graph.pad_graph(pR, pt, edges, device="cpu")
+    centre gap before and after an alignment of the card's centres onto
+    the CPU's (rigid for an SE(3) graph, a similarity for a Sim(3) one),
+    the largest node-scale gap in log (Sim(3); 0 for SE(3)), and the
+    robust costs (on the CPU) of the card's result and of the graph as it
+    went in, relative to the CPU result's."""
+    from viso_tpu_torch.backend import pose_graph, pose_graph_sim3
 
-    def cost(R, t):
-        R = torch.cat([torch.from_numpy(np.asarray(R, np.float32)), graph.R[K:]])
-        t = torch.cat([torch.from_numpy(np.asarray(t, np.float32)), graph.t[K:]])
-        return float(pose_graph.compute_cost(graph._replace(R=R, t=t), params))
+    g = rec["graph"]
+    sim3 = g["s"] is not None
+    mod = pose_graph_sim3 if sim3 else pose_graph
+    nodes = ((g["s"],) if sim3 else ()) + (g["R"], g["t"], g["edges"])
+    K = len(g["R"])
+    params = mod.PGParams(iters=25)
+    out, _ = mod.solve_padded(*nodes, params, device="cpu")
+    graph = mod.pad_graph(*nodes, device="cpu")
 
-    c_card = centres(None, rec["R"], rec["t"])
-    c_cpu = centres(None, out.R[:K].numpy(), out.t[:K].numpy())
-    _, R_a, t_a = metrics.umeyama_alignment(c_card, c_cpu, with_scale=False)
-    c_cpu_cost = cost(out.R[:K].numpy(), out.t[:K].numpy())
+    def cost(s, R, t):
+        x = dict(R=R, t=t, **({"s": s} if sim3 else {}))
+        x = {f: torch.cat([torch.from_numpy(np.asarray(v, np.float32)),
+                           getattr(graph, f)[K:]]) for f, v in x.items()}
+        return float(mod.compute_cost(graph._replace(**x), params))
+
+    s_cpu = out.s[:K].numpy() if sim3 else None
+    c_card = centres(rec["s"], rec["R"], rec["t"])
+    c_cpu = centres(s_cpu, out.R[:K].numpy(), out.t[:K].numpy())
+    a, R_a, t_a = metrics.umeyama_alignment(c_card, c_cpu, with_scale=sim3)
+    c_cpu_cost = cost(s_cpu, out.R[:K].numpy(), out.t[:K].numpy())
     return dict(unaligned=float(np.abs(c_card - c_cpu).max()),
-                aligned=float(np.abs(c_card @ R_a.T + t_a - c_cpu).max()),
-                cost_rel=abs(cost(rec["R"], rec["t"]) - c_cpu_cost) / c_cpu_cost,
-                input_rel=(cost(np.stack(pR), np.stack(pt)) - c_cpu_cost) / c_cpu_cost)
+                aligned=float(np.abs(a * c_card @ R_a.T + t_a - c_cpu).max()),
+                log_s=float(np.abs(np.log(rec["s"]) - np.log(s_cpu)).max()) if sim3 else 0.0,
+                cost_rel=abs(cost(rec["s"], rec["R"], rec["t"]) - c_cpu_cost) / c_cpu_cost,
+                input_rel=(cost(g["s"], np.stack(g["R"]), np.stack(g["t"])) - c_cpu_cost)
+                / c_cpu_cost)
+
+
+def solve_lines(torch, label, rec, routes, pools, peak, start_bytes, card):
+    """Phase 15(a) and (c): per (node, edge) bucket of the run's pose graph
+    the routes its solves took, its eager solves' seconds on the worker,
+    its capture's on the dispatch thread and its replays' median; the
+    other loop programs' captures; the graph pools and peak memory; and a
+    replayed solve of node buckets 64 and LONG_PCG_BUCKET profiled."""
+    graph_keys = {p: v for p, v in routes.captured.items() if v[0][0].startswith("pose_graph")}
+    buckets = sorted({s["bucket"] for s in rec.solves} | {v[0][1:3] for v in graph_keys.values()})
+    for b in buckets:
+        mine = [s for s in rec.solves if s["bucket"] == b]
+        eager = [f"{s['seconds']:.3f}" for s in mine if s["kind"] == "eager"]
+        replay = [1e3 * s["seconds"] for s in mine if s["kind"] == "replay"]
+        caps = [(sec, r) for k, sec, r in graph_keys.values() if k[1:3] == b]
+        print(f"{label} bucket {b[0]} nodes x {b[1]} edges: routes "
+              f"{sorted({x for s in mine for x in s['route']})}; eager solves on the worker "
+              f"(s) {eager}; capture on the dispatch thread (s) "
+              f"{[f'{sec:.3f}' for sec, _ in caps]} (route {[r for _, r in caps]}); "
+              f"{len(replay)} replayed solves, median "
+              f"{float(np.median(replay)) if replay else float('nan'):.3f} ms on the worker "
+              f"[{card}]")
+    others = [(k[0], f"{sec:.3f}") for p, (k, sec, _) in routes.captured.items()
+              if p not in graph_keys]
+    print(f"{label} other loop programs' captures (s): {others} [{card}]")
+    print(f"{label} programs: {pools[0]} of {pools[1]} captured; CUDA graph pools {pools[2]} "
+          f"bytes reserved, {pools[3]} allocated; max_memory_allocated {peak} bytes "
+          f"({start_bytes} allocated when the run began) [{card}]")
+    captured = {k: p for p, (k, _, _) in graph_keys.items()}
+    for nodes in (64, LONG_PCG_BUCKET):
+        keys = [k for k in captured if k[1] == nodes]
+        if keys:
+            k = max(keys, key=lambda k: captured[k].replays)
+            profile_solve(torch, captured[k],
+                          f"{label} replayed solve {k[1]} nodes x {k[2]} edges", card)
+
+
+def run_cycled(slam, frames, n_frames, warmup, dispatch):
+    """Phase 15(a) and (c): `slam` over `frames` cycled to `n_frames`
+    frames, each staged one frame ahead (`to_device`; a stereo frame is a
+    pair). Returns the host seconds of each `process()` after `warmup`
+    frames, the seconds those frames took (ending in a synchronise of the
+    dispatch stream) and the seconds of `join()`."""
+    def stage(f):
+        return slam.to_device(*f) if isinstance(f, tuple) else (slam.to_device(f),)
+
+    nxt = stage(frames[0])
+    per_frame = []
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        if i == warmup:
+            dispatch.synchronize()
+            per_frame, t0 = [], time.perf_counter()
+        tf = time.perf_counter()
+        cur = nxt
+        nxt = stage(frames[(i + 1) % len(frames)]) if i + 1 < n_frames else None
+        slam.process(*cur)
+        per_frame.append(time.perf_counter() - tf)
+    dispatch.synchronize()
+    elapsed = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    slam.join()
+    return per_frame, elapsed, time.perf_counter() - t1
 
 
 def long_slam_phase(torch, extract, orbit, Rs, ts, metrics, dev, card):
     """Phase 15(a). StereoSLAM on phase 6's cell, its frames cycled
     LONG_CYCLES times: past the loop database's capacity and the pose
     graph's PCG threshold. Returns K1's launches during the run."""
-    from viso_tpu_torch.backend import pose_graph
     from viso_tpu_torch.slam.full import StereoSLAM
     from viso_tpu_torch.slam.loop_closure import LoopParams
     from viso_tpu_torch.tools import diag_loops
@@ -2655,28 +2777,11 @@ def long_slam_phase(torch, extract, orbit, Rs, ts, metrics, dev, card):
                       device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
     start_bytes = torch.cuda.memory_allocated(dev)
-    cache = slam._loop_programs
     dispatch = dispatch_stream(torch, dev)
     try:
-        with Routes(cache) as routes:
+        with Routes(slam._loop_programs) as routes:
             rec = LongRunRecorder(slam, routes)
-            nxt = slam.to_device(*orbit[0])
-            per_frame = []
-            t0 = time.perf_counter()
-            for i in range(n_frames):
-                if i == SLAM_WARMUP:
-                    dispatch.synchronize()
-                    per_frame, t0 = [], time.perf_counter()
-                tf = time.perf_counter()
-                cur = nxt
-                nxt = slam.to_device(*orbit[(i + 1) % len(orbit)]) if i + 1 < n_frames else None
-                slam.process(*cur)
-                per_frame.append(time.perf_counter() - tf)
-            dispatch.synchronize()
-            elapsed = time.perf_counter() - t0
-            t1 = time.perf_counter()
-            slam.join()
-            join_s = time.perf_counter() - t1
+            per_frame, elapsed, join_s = run_cycled(slam, orbit, n_frames, SLAM_WARMUP, dispatch)
             R_est, t_est = slam.trajectory()
             launches = extract.launch.launches
             peak = torch.cuda.max_memory_allocated(dev)
@@ -2697,46 +2802,16 @@ def long_slam_phase(torch, extract, orbit, Rs, ts, metrics, dev, card):
               f"{slam.loop_params.retain_recent})")
         print("15(a) loops (from, to, inliers): "
               + str([(lp["from"], lp["to"], lp["inliers"]) for lp in loops]))
-        buckets = sorted({s["bucket"] for s in rec.solves}
-                         | {v[0][1:3] for v in routes.captured.values()
-                            if v[0][0] == "pose_graph"})
-        for b in buckets:
-            mine = [s for s in rec.solves if s["bucket"] == b]
-            eager = [f"{s['seconds']:.3f}" for s in mine if s["kind"] == "eager"]
-            replay = [1e3 * s["seconds"] for s in mine if s["kind"] == "replay"]
-            caps = [(sec, r) for p, (k, sec, r) in routes.captured.items()
-                    if k[0] == "pose_graph" and k[1:3] == b]
-            print(f"15(a) bucket {b[0]} nodes x {b[1]} edges: routes "
-                  f"{sorted({x for s in mine for x in s['route']})}; eager solves on the worker "
-                  f"(s) {eager}; capture on the dispatch thread (s) "
-                  f"{[f'{sec:.3f}' for sec, _ in caps]} (route {[r for _, r in caps]}); "
-                  f"{len(replay)} replayed solves, median "
-                  f"{float(np.median(replay)) if replay else float('nan'):.3f} ms on the worker "
-                  f"[{card}]")
-        others = [(k[0], f"{sec:.3f}") for p, (k, sec, _) in routes.captured.items()
-                  if k[0] != "pose_graph"]
-        print(f"15(a) other loop programs' captures (s): {others} [{card}]")
-        print(f"15(a) programs: {pools[0]} of {pools[1]} captured; CUDA graph pools {pools[2]} "
-              f"bytes reserved, {pools[3]} allocated; max_memory_allocated {peak} bytes "
-              f"({start_bytes} allocated when the run began) [{card}]")
+        solve_lines(torch, "15(a)", rec, routes, pools, peak, start_bytes, card)
         print(f"K1 launches during the long run: {launches}")
-
-        # The replayed solves of node buckets 64 and LONG_PCG_BUCKET.
-        captured = {k: p for p, (k, _, _) in routes.captured.items() if k[0] == "pose_graph"}
-        for nodes in (64, LONG_PCG_BUCKET):
-            keys = [k for k in captured if k[1] == nodes]
-            if keys:
-                k = max(keys, key=lambda k: captured[k].replays)
-                profile_solve(torch, captured[k],
-                              f"15(a) replayed solve {k[1]} nodes x {k[2]} edges", card)
 
         # The last LONG_CPU_SOLVES replayed PCG solves against their padded
         # graphs solved on the CPU; the last one is held.
         gaps = None
         for g in rec.pcg_replays[-LONG_CPU_SOLVES:]:
-            gaps = cpu_solve_gaps(torch, pose_graph, metrics, g)
-            print(f"15(a) replayed solve at bucket {g['bucket']} ({len(g['graph'][0])} nodes, "
-                  f"{len(g['graph'][2])} edges) against the CPU's eager solve of its graph: "
+            gaps = cpu_solve_gaps(torch, metrics, g)
+            print(f"15(a) replayed solve at bucket {g['bucket']} ({len(g['graph']['R'])} nodes, "
+                  f"{len(g['graph']['edges'])} edges) against the CPU's eager solve of its graph: "
                   f"camera centres {gaps['aligned']:.3e} m apart after a rigid alignment "
                   f"(limit {LONG_CPU_TOL_M}), {gaps['unaligned']:.3e} m before; robust costs "
                   f"{gaps['cost_rel']:.3e} apart, relative (limit {LONG_COST_RTOL}; the graph "
@@ -2840,6 +2915,121 @@ def ring_phase(torch, dev, card):
             raise AssertionError(f"15(b) {label}: bucket {key[1:3]}, routes {eager_route} / "
                                  f"{capture_route}, replays {replays}, gaps {replay_gap}, "
                                  f"{cpu_gap}, {log_gap}")
+
+
+def gate_reasons(s, lp):
+    """Why the solve-health gate rejects a recorded solve (`LongRunRecorder`):
+    the loop layer's ceilings on the camera-centre jump and the turn, and
+    MonoSLAM's node-scale range (`MonoSLAM._solve_health`)."""
+    lo, hi = s["s_range"]
+    reasons = []
+    if not s["jump"] <= lp.max_correction_m:
+        reasons.append(f"jump {s['jump']:.3f} m > {lp.max_correction_m}")
+    if not s["ang"] <= lp.max_correction_rad:
+        reasons.append(f"turn {s['ang']:.3f} rad > {lp.max_correction_rad}")
+    if not LONG_MONO_SCALES[0] < lo <= hi < LONG_MONO_SCALES[1]:
+        reasons.append(f"scales {lo:.4f}-{hi:.4f} outside {LONG_MONO_SCALES}")
+    return reasons
+
+
+def long_mono_slam_phase(torch, extract, frames, Rs, ts, metrics, dev, card):
+    """Phase 15(c). MonoSLAM on phase 9's cell (the orbit's left images,
+    `tools/mono_cell.py --slam`, seed 0), its frames cycled LONG_CYCLES
+    times: past the loop database's capacity and the Sim(3) graph's PCG
+    threshold. Returns K1's launches during the run."""
+    from viso_tpu_torch.slam.mono_full import MonoSLAM
+    from viso_tpu_torch.tools import mono_cell
+
+    n_frames = LONG_CYCLES * len(frames)
+    gt_R, gt_t = (np.concatenate([x] * LONG_CYCLES) for x in (Rs, ts))
+    extract.launch.launches = 0
+    slam = MonoSLAM(mono_cell.slam_config(), mono_cell.slam_loop_params(), device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start_bytes = torch.cuda.memory_allocated(dev)
+    dispatch = dispatch_stream(torch, dev)
+    lp = slam.loop_params
+    try:
+        with Routes(slam._loop_programs) as routes:
+            rec = LongRunRecorder(slam, routes)
+            per_frame, elapsed, join_s = run_cycled(slam, frames, n_frames, MONO_SLAM_WARMUP,
+                                                    dispatch)
+            R_est, t_est = slam.trajectory()
+            launches = extract.launch.launches
+            peak = torch.cuda.max_memory_allocated(dev)
+            pools = graph_pools(torch, slam)
+        n_kf = sum(r.is_keyframe for r in slam.results)
+        loops, errors, db, scales = (list(slam.loops), list(slam.hook_errors), slam.loop_db,
+                                     list(slam.pg_s))
+        nodes, reinits = len(scales), slam.num_reinits
+        ate, ate_raw = mono_cell.slam_accuracy(slam, gt_R, gt_t)
+        n_timed = n_frames - MONO_SLAM_WARMUP
+        med = float(np.median(per_frame))
+        print(f"15(c) MonoSLAM long run, phase 9's cell cycled {LONG_CYCLES} times "
+              f"({n_frames} frames): {n_timed / elapsed:.3f} frames/s mean, {1.0 / med:.3f} "
+              f"frames/s median per frame ({1e3 * med:.3f} ms) over {n_timed} frames after "
+              f"{MONO_SLAM_WARMUP} warmup; join {join_s:.2f} s [{card}]")
+        after = [x for x in loops if x["from"] >= lp.capacity]
+        print(f"15(c): {n_kf} keyframes, {nodes} pose-graph nodes, {len(slam.pg_edges)} edges, "
+              f"{len(loops)} loops ({len(after)} after the wrap, "
+              f"{sum(x['to'] >= lp.capacity for x in after)} of them to a node stored after "
+              f"it), {reinits} re-inits, loop_db.total {db.total}, count {db.count} of capacity "
+              f"{lp.capacity} (retain_recent {lp.retain_recent}); node scales "
+              f"{min(scales):.4f}-{max(scales):.4f}")
+        print("15(c) loops (from, to, inliers, s_rel): "
+              + str([(x["from"], x["to"], x["inliers"], round(x["s_rel"], 4)) for x in loops]))
+        accepted = [s for s in rec.solves if s["accepted"]]
+        rejected = [(s["nodes"], gate_reasons(s, lp)) for s in rec.solves if not s["accepted"]]
+        print(f"15(c) solve-health gate: {len(accepted)} of {len(rec.solves)} solves accepted, "
+              f"{len(rejected)} rejected (nodes, reasons) {rejected}")
+        solve_lines(torch, "15(c)", rec, routes, pools, peak, start_bytes, card)
+        print(f"K1 launches during the long mono run: {launches}")
+
+        # The last LONG_CPU_SOLVES replayed PCG solves against their padded
+        # graphs solved on the CPU; the last one is held.
+        gaps = None
+        for g in rec.pcg_replays[-LONG_CPU_SOLVES:]:
+            gaps = cpu_solve_gaps(torch, metrics, g)
+            print(f"15(c) replayed Sim(3) solve at bucket {g['bucket']} ({len(g['graph']['R'])} "
+                  f"nodes, {len(g['graph']['edges'])} edges) against the CPU's eager solve of its "
+                  f"graph: camera centres {gaps['aligned']:.3e} m apart after a similarity "
+                  f"alignment (limit {LONG_CPU_TOL_M}), {gaps['unaligned']:.3e} m before; node "
+                  f"scales {gaps['log_s']:.3e} apart in log (limit {LONG_CPU_LOG_S_TOL}); "
+                  f"robust costs {gaps['cost_rel']:.3e} apart, relative (limit "
+                  f"{LONG_COST_RTOL}; the graph as it went in {gaps['input_rel']:.3e} above "
+                  f"the CPU's); held for the last [{card}]")
+        check_eviction(torch, slam, rec, card, "15(c)")
+    finally:
+        slam.close()
+
+    print(f"15(c) scale-aligned keyframe ATE: {ate:.6f} m after the Sim(3) correction (limit "
+          f"{LONG_MONO_ATE_LIMIT_M} m, at most {LONG_MONO_OVER_RAW_M} m above raw), "
+          f"{ate_raw:.6f} m raw")
+    pcg_solves = [s for s in rec.solves if s["bucket"][0] == LONG_PCG_BUCKET
+                  and s["kind"] == "replay" and s["route"] == ["pcg"]]
+    failed = {
+        "finite poses": len(R_est) == n_frames and np.isfinite(R_est).all()
+        and np.isfinite(t_est).all(),
+        "no hook errors": not errors,
+        f">= {LONG_MIN_NODES} nodes and inserts": nodes >= LONG_MIN_NODES
+        and db.total >= LONG_MIN_NODES,
+        "database past capacity": db.total > lp.capacity and db.count == lp.capacity,
+        "a loop after the wrap to a node stored after it": any(
+            x["to"] >= lp.capacity for x in after),
+        "a replayed PCG solve at bucket 512": bool(pcg_solves),
+        "the replayed PCG solve on the CPU": gaps is not None
+        and gaps["aligned"] <= LONG_CPU_TOL_M and gaps["log_s"] <= LONG_CPU_LOG_S_TOL
+        and gaps["cost_rel"] <= LONG_COST_RTOL,
+        "corrected keyframe ATE": ate < LONG_MONO_ATE_LIMIT_M
+        and ate <= ate_raw + LONG_MONO_OVER_RAW_M,
+        "K1 launched": launches > 0,
+    }
+    failed = [k for k, ok in failed.items() if not ok]
+    if errors:
+        print(f"15(c) first hook error: {errors[0]!r}")
+    if failed:
+        raise AssertionError(f"15(c) failed: {failed}")
+    print(f"15(c): {len(pcg_solves)} replayed PCG solves at bucket {LONG_PCG_BUCKET}")
+    return launches
 
 
 def as_u8(img):
@@ -3418,8 +3608,11 @@ def main() -> int:
     long_k1 = long_slam_phase(torch, extract, orbit, orbit_Rs, orbit_ts, metrics, dev, card)
     t1 = time.perf_counter()
     ring_phase(torch, dev, card)
+    t2 = time.perf_counter()
+    long_k1 += long_mono_slam_phase(torch, extract, [il for il, _ in orbit], orbit_Rs, orbit_ts,
+                                    metrics, dev, card)
     print(f"phase 15 wall {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f} s, (b) "
-          f"{time.perf_counter() - t1:.1f} s)")
+          f"{t2 - t1:.1f} s, (c) {time.perf_counter() - t2:.1f} s)")
 
     # Phase 16: the ingestion path, from PNG files through the ring.
     t0 = time.perf_counter()

@@ -65,6 +65,13 @@ def normalize(uv, intr: Intrinsics):
     return torch.stack([x, y], dim=-1)
 
 
+def denormalize(xy, intr: Intrinsics):
+    """Normalized image coords -> pixels: the inverse of `normalize`."""
+    u = xy[..., 0] * intr.fx + intr.cx
+    v = xy[..., 1] * intr.fy + intr.cy
+    return torch.stack([u, v], dim=-1)
+
+
 def is_inside(uv, height, width, border: float = 0.0):
     """Bounds mask with a patch border."""
     u, v = uv[..., 0], uv[..., 1]

@@ -92,6 +92,18 @@ def epipolar_residual(E, x1, x2):
     return (x2Ex1**2) / (denom + 1e-12)
 
 
+def signed_sampson(E, x1, x2):
+    """First-order geometric (signed) epipolar distance of correspondences
+    x1, x2 (..., N, 2) to E: (..., N)."""
+    p1 = _homogeneous(x1)
+    p2 = _homogeneous(x2)
+    Ex1 = torch.einsum("...ij,...nj->...ni", E, p1)
+    Etx2 = torch.einsum("...ji,...nj->...ni", E, p2)
+    num = torch.sum(p2 * Ex1, dim=-1)
+    den = Ex1[..., 0] ** 2 + Ex1[..., 1] ** 2 + Etx2[..., 0] ** 2 + Etx2[..., 1] ** 2
+    return num / torch.sqrt(den + 1e-18)
+
+
 def essential_from_rt(R, t):
     """E = [t]x R (up to scale)."""
     return se3.hat(t) @ R

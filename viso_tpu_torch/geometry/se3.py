@@ -153,6 +153,20 @@ def left_update(xi, R, t):
     return compose(dR, dt, R, t)
 
 
+def make_matrix(R, t):
+    """A 4x4 homogeneous transform (..., 4, 4) from R (..., 3, 3), t (..., 3)."""
+    R = torch.as_tensor(R)
+    t = torch.as_tensor(t, dtype=R.dtype, device=R.device)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    top = torch.cat([R, t[..., None]], dim=-1)
+    return torch.cat([top, bottom.expand(R.shape[:-2] + (1, 4))], dim=-2)
+
+
+def from_matrix(T):
+    """Split a 4x4 homogeneous transform into (R, t)."""
+    return T[..., :3, :3], T[..., :3, 3]
+
+
 def relative(Ra, ta, Rb, tb):
     """T_ab = T_a * T_b^{-1}: transform taking frame-b camera coords to frame-a."""
     Rbi, tbi = inverse(Rb, tb)

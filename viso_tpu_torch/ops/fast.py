@@ -94,6 +94,19 @@ def _nms(score):
     return torch.where(score >= pooled, score, 0.0)
 
 
+def detect(img, threshold: float = 50.0, max_num: int = 1024, nms: bool = True):
+    """Single-scale FAST with a global top-k: (uv (max_num, 2) float32,
+    score (max_num,), mask (max_num,)). uv is (u=col, v=row); slots past
+    the detections have mask False."""
+    s = score_map(img, threshold)
+    if nms:
+        s = _nms(s)
+    W = s.shape[1]
+    vals, idx = _top_k(s.reshape(-1), max_num)
+    uv = torch.stack([idx % W, idx // W], dim=-1).to(torch.float32)
+    return uv, vals, vals > 0.0
+
+
 def _cells(s, gh: int, gw: int):
     """(G, ch*cw) per-cell score rows of a (H, W) map, plus (ch, cw)."""
     Hl, Wl = s.shape

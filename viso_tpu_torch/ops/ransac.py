@@ -2,9 +2,11 @@
 pass (port of `viso_tpu/ops/ransac.py`).
 
 Split as `ops/pnp.py` is: `draw_indices` draws the minimal samples from a
-`torch.Generator`, and the `*_from_indices` functions take them. torch
-cannot reproduce a `jax.random` stream, so tests hand both packages the
-same indices.
+`torch.Generator`, and the `*_from_indices` functions take them;
+`ransac`, `essential_ransac` and `homography_ransac` do both in one call,
+with a generator where the JAX package takes a key. torch cannot
+reproduce a `jax.random` stream, so tests hand both packages the same
+indices.
 
 The `*_from_indices` functions are segments between the calls that read
 the device on the host on CUDA (the `eigh` and `svd` of
@@ -20,6 +22,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from viso_tpu_torch.geometry import epipolar
 from viso_tpu_torch.mapping.map_state import row
@@ -45,6 +48,48 @@ def draw_indices(generator, mask, num_hypotheses: int, sample_size: int):
     rank = torch.minimum(torch.floor(u * n_valid).to(torch.int64), n_valid - 1)
     idx = torch.searchsorted(cum, rank, right=True)
     return torch.where(n_valid > 0, idx, 0)
+
+
+def ransac(generator, x1, x2, mask, fit_fn, residual_fn, sample_size: int,
+           num_hypotheses: int, threshold: float):
+    """Generic batched RANSAC over correspondences x1, x2 (N, 2):
+    `num_hypotheses` minimal samples of `sample_size` drawn from
+    `generator`, then `ransac_from_indices`."""
+    idx = draw_indices(generator, mask, num_hypotheses, sample_size)
+    return ransac_from_indices(idx, x1, x2, mask, fit_fn, residual_fn, threshold)
+
+
+def ransac_from_indices(idx, x1, x2, mask, fit_fn, residual_fn, threshold: float):
+    """Batched RANSAC over hypotheses idx (S, k): fit_fn((k, 2), (k, 2)) ->
+    model (a tensor or a tuple of tensors) and residual_fn(model, x1, x2)
+    -> (N,) squared residuals, each mapped over the hypotheses
+    (`torch.func.vmap`); the first hypothesis with the most inliers wins
+    (`jnp.argmax`'s order)."""
+    models = torch.func.vmap(fit_fn)(x1[idx], x2[idx])
+    res = torch.func.vmap(lambda m: residual_fn(m, x1, x2))(models)
+    inl = (res < threshold) & mask[None, :]
+    counts = torch.sum(inl, dim=-1)
+    best = torch.argmax(counts)
+    model = tree_map(lambda m: row(m, best), models)
+    return RansacResult(model, row(inl, best), row(counts, best), best)
+
+
+def essential_ransac(generator, x1, x2, mask, threshold: float = 1e-5,
+                     num_hypotheses: int = 2048, top_k: int = 8, refine_iters: int = 12):
+    """8-point essential RANSAC with multi-start manifold refinement
+    (`essential_ransac_from_indices`) over `num_hypotheses` samples drawn
+    from `generator`."""
+    return essential_ransac_from_indices(draw_indices(generator, mask, num_hypotheses, 8),
+                                         x1, x2, mask, threshold, top_k, refine_iters)
+
+
+def homography_ransac(generator, x1, x2, mask, threshold: float = 1e-5,
+                      num_hypotheses: int = 256):
+    """4-point DLT homography RANSAC with 4 local-optimisation refits
+    (`homography_ransac_from_indices`) over `num_hypotheses` samples drawn
+    from `generator`."""
+    return homography_ransac_from_indices(draw_indices(generator, mask, num_hypotheses, 4),
+                                          x1, x2, mask, threshold)
 
 
 def eager(name, fn, statics, *args):
