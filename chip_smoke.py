@@ -118,8 +118,8 @@ raises and exits non-zero:
      2 gloo ranks sharing the card, rank 0 synchronising the whole device
      after every `process()` call: per run frames/s (mean and median per
      call), loops, ATE below 0.15 m, no hook error, K1 launched; the
-     ranks' raw trajectories equal, their corrected centres within
-     DIST_CELL_RANK_GAP_M, each within DIST_CELL_BAND_M of world 1's;
+     ranks' raw and corrected trajectories equal bit for bit, each
+     within DIST_CELL_BAND_M of world 1's;
      (f) `run.main(["--distribute", "--mode", "mono-slam", ...])` on the
      CLI's synthetic run over 2 gloo ranks: tracking reached, the ranks'
      trajectories equal, ATE below 2.0 m, no hook error, K1 launched;
@@ -164,12 +164,17 @@ raises and exits non-zero:
      dispatch thread at the drain after it asked), and the first
      REPLAY_CHECKS of those solves that replay, held against an
      eager call of the bare function on the same
-     inputs, bit for bit (the solves, whose scatter-adds use atomics,
-     within LOOP_SOLVE_TOL), with new outputs at new inputs and the
+     inputs, bit for bit (the solves too: they sum their normal
+     equations with no atomics), with new outputs at new inputs and the
      digest's K1 launches; a keyframe hook's digest on the dispatch
      thread and a solve on the worker under
      `set_sync_debug_mode("error")`; each program's host enqueue ms,
      device ms and kernels, replayed and eager; the graph pools' bytes;
+     (b) each run's last graph at its own bucket solved SOLVE_REPEATS
+     times eagerly and SOLVE_REPEATS times replayed through a new
+     `programs.Cache` (`tools/bench_pose_graph.run`), every result bit-equal
+     to the first, with the capture's seconds, the replay's device ms and
+     kernels, the program's pool bytes and the peak allocation;
  14. the monocular bootstrap's programs (the init chain's LK, the
      two-view segments) and the captured sharded solve: (a) MonocularVO
      on the mono cell's first BOOT_FRAMES frames with re-inits forced at
@@ -205,8 +210,8 @@ raises and exits non-zero:
      keyframe ATE below phase 6's bound; (b) a RING_NODES-node SE(3) and
      Sim(3) graph (`synthetic.ring_graph`) through `solve_padded(...,
      programs=Cache(dev))` three times (eager, captured, replayed): the
-     PCG route, the replay
-     within RING_REPLAY_TOL_M of the eager call, both within RING_CPU_TOL_M
+     PCG route, the replays
+     bit-equal to the eager call, both within RING_CPU_TOL_M
      (Sim(3) scales RING_CPU_LOG_S_TOL in log) of the CPU, the capture's
      seconds and the replay's device ms and kernels; (c) MonoSLAM on phase
      9's cell (the orbit's left images, the configuration uncut) cycled
@@ -351,9 +356,10 @@ DIST_SPAWN_TIMEOUT_S = 120.0
 # Phase 10(e): the 500-frame loop SLAM cell with distribute_ba and
 # stats_deterministic over DIST_CELL_RANKS gloo ranks sharing the card, and
 # at world size 1. The ranks' raw trajectories must be equal. Their
-# corrected camera centres within DIST_CELL_RANK_GAP_M of each other: each
-# rank solves its own pose graphs, which accumulate with atomics (an H100
-# read 9.61e-05 and 1.17e-04 m). Each rank's centres, raw and corrected,
+# corrected camera centres equal too, bit for bit: each rank solves its own
+# pose graphs, and a solve is a function of its graph (when the solves
+# accumulated with atomics, an H100 read the ranks' corrected centres
+# 9.61e-05 and 1.17e-04 m apart). Each rank's centres, raw and corrected,
 # within DIST_CELL_BAND_M of the world-1 run's: the sharded window BA sums
 # the ranks' halves in another order than one rank sums the whole, so its
 # LM iterates part from one rank's (phase (b): points up to 2.15e-3 m off
@@ -362,7 +368,6 @@ DIST_SPAWN_TIMEOUT_S = 120.0
 # centres first 1 mm apart at frame 16, the ranks' ATE 0.0626 m against
 # world 1's 0.0797 m).
 DIST_CELL_RANKS = 2
-DIST_CELL_RANK_GAP_M = 1e-3
 DIST_CELL_BAND_M = 0.2
 DIST_CELL_TIMEOUT_S = 600.0
 # Phase 11: tests/test_torch_stats_stress.py's corridor and its ATE bound
@@ -382,15 +387,15 @@ PROFILE_REPS = 1
 REPLAY_CHECKS = 3
 PROGRAM_MONO_FRAMES = 160
 PROGRAM_TIME_REPS = 3
-# Phase 13: a replayed pose-graph solve against an eager one, largest
-# absolute gap over every float output (poses, scales, costs): the solves
-# scatter-add with atomics (`index_add_`), so two eager solves need not
-# agree bit for bit either, and an accept test that flips on a last-bit
-# cost gap moves the rest of the LM run. Phase 9's bound for the same
-# solve on the card against the CPU (MONO_SLAM_SOLVE_TOL); on an H100 the
-# stereo cell's graphs read gaps of 0 to 2.5e-4, and two eager solves on
-# the same inputs up to 1.5e-4 (PERF.md).
-LOOP_SOLVE_TOL = 1e-3
+# Phase 13: a replayed pose-graph solve against an eager one, bit for bit,
+# as every other program: the solves sum their normal equations in a fixed
+# order, with no atomics. (When they scatter-added with atomics, two eager
+# solves need not agree either, and an accept test that flipped on a
+# last-bit cost gap moved the rest of the LM run: they were held within
+# 1e-3, and an H100 read 0 to 2.5e-4, two eager solves on the same inputs
+# up to 1.5e-4, and once 1.25e-3.) (b): the eager solves and the
+# replays of each run's last graph.
+SOLVE_REPEATS = 5
 # Phase 14: the mono cell's first frames with re-inits forced at
 # BOOT_REINITS (the cell's engine tracks from frame 5, and a bootstrap
 # takes 4 chained frames: 2 calls of each program, then its checked
@@ -411,31 +416,33 @@ STRICT_RAN = ["init_track", "twoview.initialize"]
 # the PCG route) from the fifth cycle on and the 256-entry database past
 # capacity from the fifth too. The run must reach LONG_MIN_NODES nodes and
 # database inserts. A replayed PCG solve against the same padded graph
-# solved eagerly on the CPU: camera centres within phase 9/13's bound for
-# the solves' `index_add_` atomics after a rigid alignment (Umeyama, no
-# scale), and the robust cost of the card's result within LONG_COST_RTOL
-# of the CPU's. Unaligned, these graphs' solutions are set only to
-# millimetres: their soft mode is a turn of the graph about its gauge node
-# (0.007-0.07 degrees), which the cost does not see. An H100 read, over
-# the 34 replayed PCG solves of one run, 5.4e-5 to 6.7e-3 m unaligned
-# (17 above 1e-3), 3.1e-5 to 5.8e-4 m aligned and costs 1.5e-7 to 3.6e-5
-# apart, against 4.2e-3 to 0.295 for the graph as it went in; two eager
-# solves of one graph on the card part by up to 1.3e-3 m, and on the CPU
-# the JAX package's PCG and dense solves of one such graph by 5.3e-3 m.
+# solved eagerly on the CPU: camera centres within phase 9's bound for the
+# card against the CPU (whose sums run in another order) after a rigid
+# alignment (Umeyama, no scale), and the robust cost of the card's result
+# within LONG_COST_RTOL of the CPU's. Unaligned, these graphs' solutions
+# are set only to millimetres: their soft mode is a turn of the graph
+# about its gauge node (0.007-0.07 degrees), which the cost does not see.
+# An H100 read, over the 34 replayed PCG solves of one run, 5.4e-5 to
+# 6.7e-3 m unaligned (17 above 1e-3), 3.1e-5 to 5.8e-4 m aligned and
+# costs 1.5e-7 to 3.6e-5 apart, against 4.2e-3 to 0.295 for the graph as
+# it went in; on the CPU the JAX package's PCG and dense solves of one
+# such graph part by 5.3e-3 m. (With atomic sums two eager solves of one
+# graph on the card parted by up to 1.3e-3 m; now they are equal.)
 # The last LONG_CPU_SOLVES are solved on the CPU and printed, the last one
-# held.
+# held (one: each CPU solve at bucket 512 takes seconds of the smoke's
+# time limit, and the earlier ones were printed, not held).
 LONG_CYCLES = 6
 LONG_MIN_NODES = 300
 LONG_PCG_BUCKET = 512
 LONG_CPU_TOL_M = 1e-3
 LONG_COST_RTOL = 1e-4
-LONG_CPU_SOLVES = 3
+LONG_CPU_SOLVES = 1
 # Phase 15(b): graphs shaped like the 2048-node PCG tests (tests/test_ba.py,
 # tests/test_loop.py) at RING_NODES nodes, on the orbit's 2.5 m circle. The
-# replay against the eager call on the card, and both against the CPU (in
-# log for Sim(3) scales).
+# replays against the eager call on the card bit for bit (with atomic sums
+# they were held within 1e-4 m), and both against the CPU (in log for
+# Sim(3) scales).
 RING_NODES = 300
-RING_REPLAY_TOL_M = 1e-4
 RING_CPU_TOL_M = 1e-3
 RING_CPU_LOG_S_TOL = 1e-3
 # Phase 15(c): phase 9's mono SLAM cell (the orbit's left images) cycled
@@ -1841,14 +1848,13 @@ class LoopReplayCheck:
     REPLAY_CHECKS calls of each that replay its captured graph (a cached
     program runs eagerly at its first call and captures at its second on
     the dispatch thread; the worker's run eagerly until a drain made
-    their capture), of a solve once `check_solves` is set, are each preceded by an eager call of its bare function on
-    the same staged inputs. The digest and the detection's segments are held
-    against it bit for bit (neither accumulates with atomics); a solve
-    within LOOP_SOLVE_TOL, since its scatter-adds (`index_add_`) use
-    atomics, whose order differs from call to call. The digest's K1
-    launches are held against the eager call's, the outputs against the previous checked
-    call's (new inputs give new outputs). Keeps each program's last staged
-    arguments for the timings."""
+    their capture), of a solve once `check_solves` is set, are each
+    preceded by an eager call of its bare function on the same staged
+    inputs, and held against it bit for bit (no program accumulates with
+    atomics; a solve's first check also holds a second eager call). The
+    digest's K1 launches are held against the eager call's, the outputs
+    against the previous checked call's (new inputs give new outputs).
+    Keeps each program's last staged arguments for the timings."""
 
     def __init__(self, torch, slam, extract):
         from viso_tpu_torch.slam import programs
@@ -1897,18 +1903,17 @@ class LoopReplayCheck:
                 # launches move the counter meanwhile.
                 n_eager = n_replay = None
             got = self.programs.flatten(out)[0]
+            equal = len(got) == len(ref) and all(bit_equal(torch, a, b)
+                                                 for a, b in zip(got, ref))
+            gap = None
             if key[0].startswith("pose_graph"):
                 gap = self.gap(got, ref)
-                equal = gap <= LOOP_SOLVE_TOL
                 if name not in self.eager_gaps:
-                    # Two eager solves on the same inputs, for scale.
+                    # Two eager solves on the same inputs.
                     again = self.programs.flatten(
                         prog.fn(*self.programs.unflatten(prog.spec, prog.inputs)))[0]
                     self.eager_gaps[name] = self.gap(again, ref)
-            else:
-                gap = None
-                equal = len(got) == len(ref) and all(bit_equal(torch, a, b)
-                                                     for a, b in zip(got, ref))
+                    equal = equal and all(bit_equal(torch, a, b) for a, b in zip(again, ref))
             prev = self.prev.get(name)
             self.rows.append(dict(
                 name=name, call=prog.calls, graphed=prog.graph is not None,
@@ -2074,9 +2079,33 @@ def loop_programs_phase(torch, extract, orbit, dev, card):
             pools = graph_pools(torch, slam)
             print(f"{label} programs: {pools[0]} of {pools[1]} captured; CUDA graph pools "
                   f"{pools[2]} bytes reserved, {pools[3]} allocated [{card}]")
+            repeated_solves(slam, label == "MonoSLAM", dev, card)
         finally:
             slam.close()
         print(f"phase 13 {label} wall {time.perf_counter() - t0:.1f} s")
+
+
+def repeated_solves(slam, mono, dev, card):
+    """Phase 13(b). The run's last graph at its own bucket solved
+    SOLVE_REPEATS times eagerly and SOLVE_REPEATS times replayed through a
+    new `programs.Cache` (`tools/bench_pose_graph.run`): every result bit-equal
+    to the first eager one; the capture's seconds, the replay's device ms
+    and kernels, the program's pool bytes and the peak allocation."""
+    from viso_tpu_torch.tools import bench_pose_graph
+
+    label = "MonoSLAM" if mono else "StereoSLAM"
+    args = ((slam.pg_s,) if mono else ()) + (slam.pg_R, slam.pg_t, slam.pg_edges)
+    r = bench_pose_graph.run(args, mono, dev, SOLVE_REPEATS, f"13(b) {label}")
+    print(f"13(b) {label} last graph ({len(slam.pg_R)} nodes, {len(slam.pg_edges)} edges) "
+          f"-> bucket {r['key'][1]}x{r['key'][2]}: {r['eager']} eager solves and "
+          f"{r['replays']} replays bit-equal {r['bit_equal']} (largest gap {r['max_gap']:.3g}); "
+          f"capture {r['capture_s']:.3f} s; replay host {r['host_ms']:.3f} ms, device "
+          f"{r['device_ms']:.3f} ms, {r['kernels']} kernels ({r['profiler_windows']} profiler "
+          f"windows); program pool {r['pool_bytes']} bytes, max_memory_allocated "
+          f"{r['max_memory_allocated']} bytes [{card}]")
+    if not (r["bit_equal"] and r["replays"] == SOLVE_REPEATS and r["device_ms"] > 0
+            and r["kernels"] > 0):
+        raise AssertionError(f"13(b) {label}: {r}")
 
 
 class SyncSites:
@@ -2399,7 +2428,7 @@ def dist_slam_phase(torch, orbit, Rs, ts, dev, card):
                                    args=(frames, cfg, lp, True), device=dev, backend="gloo",
                                    timeout=DIST_CELL_TIMEOUT_S)
     t2 = time.perf_counter()
-    raw_equal, rank_gap = multiprocess_ba.slam_ranks_gap(ranks)
+    raw_equal, corrected_equal, rank_gap = multiprocess_ba.slam_ranks_gap(ranks)
     bad = []
     for r in [world1] + ranks:
         pf = np.asarray(r["per_frame_s"])
@@ -2423,13 +2452,13 @@ def dist_slam_phase(torch, orbit, Rs, ts, dev, card):
                 and max(band) <= DIST_CELL_BAND_M):
             bad.append(r["rank"] if r["world"] > 1 else "world 1")
     print(f"(e) {DIST_CELL_RANKS} gloo ranks sharing one card: raw trajectories equal "
-          f"{raw_equal}, corrected centres within {rank_gap:.3g} m of rank 0's (limit "
-          f"{DIST_CELL_RANK_GAP_M}); world 1 {t1 - t0:.1f} s, the ranks {t2 - t1:.1f} s "
-          f"[{card}]")
-    if bad or not raw_equal or rank_gap > DIST_CELL_RANK_GAP_M or not all(
+          f"{raw_equal}, corrected trajectories equal {corrected_equal} (bit for bit; "
+          f"largest gap to rank 0's {rank_gap:.3g} m); world 1 {t1 - t0:.1f} s, the ranks "
+          f"{t2 - t1:.1f} s [{card}]")
+    if bad or not raw_equal or not corrected_equal or not all(
             r["ba_solve"] == "eager (gloo)" for r in ranks):
-        raise AssertionError(f"(e): failing runs {bad}, raw equal {raw_equal}, rank gap "
-                             f"{rank_gap} m")
+        raise AssertionError(f"(e): failing runs {bad}, raw equal {raw_equal}, corrected "
+                             f"equal {corrected_equal}, rank gap {rank_gap} m")
     return world1["k1_launches"] + sum(r["k1_launches"] for r in ranks)
 
 
@@ -2861,9 +2890,9 @@ def ring_phase(torch, dev, card):
     """Phase 15(b). A RING_NODES-node SE(3) graph and a Sim(3) one, each
     solved three times through `solve_padded(..., programs=Cache(dev))` on
     this thread (its first call eager, its second captured and replayed,
-    its third replayed): the replay against the eager call, both against
-    the CPU's eager solve, the route each took, and the replay's host ms,
-    device ms and kernels."""
+    its third replayed): the replays against the eager call bit for bit,
+    both against the CPU's eager solve, the route each took, and the
+    replay's host ms, device ms and kernels."""
     from viso_tpu_torch.backend import pose_graph, pose_graph_sim3
     from viso_tpu_torch.data.synthetic import ring_graph
     from viso_tpu_torch.slam import programs
@@ -2878,13 +2907,15 @@ def ring_phase(torch, dev, card):
             x = {f: getattr(out, f)[:RING_NODES].cpu().numpy() for f in fields}
             return x.get("s"), centres(x.get("s"), x["R"], x["t"])
 
-        results, seconds = [], []
+        results, raw, seconds = [], [], []
         with Routes(cache) as routes:
             for call in range(3):
                 t0 = time.perf_counter()
                 with routes.during() as taken:
                     out, info = mod.solve_padded(*args, params, device=dev, programs=cache)
                 results.append(node_centres(out))
+                raw.append([x.clone() for x in [*(getattr(out, f) for f in fields),
+                                                info["final_cost"], info["cost_history"]]])
                 seconds.append(time.perf_counter() - t0)
                 if call == 0:
                     eager_route = sorted(set(taken))
@@ -2894,6 +2925,7 @@ def ring_phase(torch, dev, card):
         cpu, _ = mod.solve_padded(*args, params, device="cpu")
         (s_e, c_e), (s_r, c_r), (s_c, c_c) = results[0], results[2], node_centres(cpu)
         replay_gap = float(np.abs(c_r - c_e).max())
+        replays_equal = all(bit_equal(torch, a, b) for r in raw[1:] for a, b in zip(r, raw[0]))
         cpu_gap = max(float(np.abs(c - c_c).max()) for c in (c_e, c_r))
         log_gap = (max(float(np.abs(np.log(s) - np.log(s_c)).max()) for s in (s_e, s_r))
                    if sim3 else 0.0)
@@ -2903,14 +2935,14 @@ def ring_phase(torch, dev, card):
               f"holds the capture, {capture_s:.3f} s); final cost "
               f"{float(info['final_cost']):.6g} from {float(info['initial_cost']):.6g}; true "
               f"centres off by {float(np.abs(c_r - c_true).max()):.3e} m [{card}]")
-        print(f"15(b) {label}: replay against the eager call {replay_gap:.3e} m (limit "
-              f"{RING_REPLAY_TOL_M}); card against the CPU {cpu_gap:.3e} m (limit "
+        print(f"15(b) {label}: replays equal to the eager call bit for bit {replays_equal} "
+              f"(gap {replay_gap:.3e} m); card against the CPU {cpu_gap:.3e} m (limit "
               f"{RING_CPU_TOL_M})" + (f", scales {log_gap:.3e} in log (limit "
                                        f"{RING_CPU_LOG_S_TOL})" if sim3 else "") + f" [{card}]")
         profile_solve(torch, prog, f"15(b) {label} replayed solve {key[1]}x{key[2]}", card)
         if not (key[1] == LONG_PCG_BUCKET and eager_route == capture_route == ["pcg"]
                 and prog.graph is not None and replays == 2
-                and replay_gap <= RING_REPLAY_TOL_M and cpu_gap <= RING_CPU_TOL_M
+                and replays_equal and cpu_gap <= RING_CPU_TOL_M
                 and log_gap <= RING_CPU_LOG_S_TOL):
             raise AssertionError(f"15(b) {label}: bucket {key[1:3]}, routes {eager_route} / "
                                  f"{capture_route}, replays {replays}, gaps {replay_gap}, "

@@ -432,11 +432,11 @@ def test_program_replays_equal_eager_calls_on_cuda(cuda_device, mono, name):
 # The SLAM loop layer's programs (slam/programs.Cache): each captured at
 # its second call and replayed after.
 LOOP_NF, LOOP_CAPACITY = 256, 64
-# A replayed solve against an eager one: the solves scatter-add with
-# atomics (`index_add_`), whose order differs from call to call, so two
-# eager solves need not agree bit for bit either; 1e-4 is the tolerance
-# the port's solves keep against the JAX package's.
-SOLVE_REPLAY_ATOL = 1e-4
+# A replayed solve against an eager one: bit for bit, since the solves sum
+# their normal equations in a fixed order, with no atomics (with atomic
+# sums the bound was 1e-4, the tolerance the port's solves keep against the
+# JAX package's).
+SOLVE_REPLAY_ATOL = 0.0
 
 
 def _loop_scene(device, seed=5, sim3=False):
@@ -538,9 +538,9 @@ def _solve_case(K, sim3, seed):
 def test_solve_programs_replay_within_tolerance_of_eager_on_cuda(cuda_device, K, sim3):
     """Four graphs at one bucket through the loop layer's solve program
     (the first eager, captured at the second): each within
-    SOLVE_REPLAY_ATOL of an eager solve of its graph, the fourth replay
-    under set_sync_debug_mode("error"). 400 nodes go to the 512-node PCG
-    bucket."""
+    SOLVE_REPLAY_ATOL (0: bit for bit) of an eager solve of its graph,
+    the fourth replay under set_sync_debug_mode("error"). 400 nodes go to
+    the 512-node PCG bucket."""
     from viso_tpu_torch.backend import pose_graph as pg
     from viso_tpu_torch.backend import pose_graph_sim3 as pgs
     from viso_tpu_torch.slam import programs
@@ -756,9 +756,9 @@ def test_bucket_512_solve_captured_then_replayed_on_cuda(cuda_device, monkeypatc
     own thread: the first call eager, the second captured and replayed,
     the third replayed. Its program is node bucket 512's, the LM took the
     PCG route in the eager call and in the capture (25 iterations each, no
-    dense step), and each replay's camera centres lie within 1e-4 m of the
-    eager call's (an H100 read 5.4e-6 m; the solve scatter-adds with
-    atomics, so not bit for bit)."""
+    dense step), and each replay's camera centres equal the eager call's
+    bit for bit (the normal equations are summed with no atomics; when
+    they were scatter-added, an H100 read 5.4e-6 m)."""
     from viso_tpu_torch.backend import pose_graph as pg
     from viso_tpu_torch.data.synthetic import ring_graph
     from viso_tpu_torch.slam import programs
@@ -786,7 +786,41 @@ def test_bucket_512_solve_captured_then_replayed_on_cuda(cuda_device, monkeypatc
     assert key[:3] == ("pose_graph", 512, 512) and prog.graph is not None and prog.replays == 2
     assert routes == ["pcg"] * 50
     for c in centres[1:]:
-        assert float((c - centres[0]).abs().max()) <= 1e-4
+        assert torch.equal(c, centres[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, sim3", [(50, False), (50, True), (400, False), (400, True)])
+def test_solves_bit_equal_eager_and_replayed_on_cuda(cuda_device, K, sim3):
+    """One padded graph (node bucket 64, the dense route; 512, PCG)
+    solved 5 times eagerly and 6 times through a `programs.Cache` (its
+    first call eager, then captured and replayed 5 times): every result
+    (nodes, final cost, cost history) bit-equal to the first. The normal
+    equations are summed in a fixed order, with no atomics, and no
+    process-wide determinism switch is set."""
+    from viso_tpu_torch.backend import pose_graph as pg
+    from viso_tpu_torch.backend import pose_graph_sim3 as pgs
+    from viso_tpu_torch.slam import programs
+
+    mod = pgs if sim3 else pg
+    params = mod.PGParams(iters=25)
+    case = _solve_case(K, sim3, 0)
+    names = ("s", "R", "t") if sim3 else ("R", "t")
+
+    def bits(out, info):
+        xs = [getattr(out, k) for k in names] + [info["final_cost"], info["cost_history"]]
+        return [x.detach().clone().view(torch.int32) for x in xs]
+
+    results = [bits(*mod.solve_padded(*case, params, device=cuda_device)) for _ in range(5)]
+    cache = programs.Cache(cuda_device)
+    for _ in range(6):
+        results.append(bits(*mod.solve_padded(*case, params, device=cuda_device,
+                                              programs=cache)))
+    (prog,) = cache.programs.values()
+    assert prog.graph is not None and prog.replays == 5
+    assert not torch.are_deterministic_algorithms_enabled()
+    for r in results[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(r, results[0]))
 
 
 def _upload_engine(device):

@@ -25,9 +25,9 @@ from viso_tpu.ops import pnp as j_pnp
 from viso_tpu.ops import pyramid as j_pyramid
 from viso_tpu.utils import metrics as j_metrics
 from viso_tpu_torch.data.synthetic import so3_exp
-from viso_tpu_torch.tools import (diag_drift, diag_loops, diag_mono_seam, diag_track_bias,
-                                  multiprocess_ba, profile_device, profile_direct,
-                                  profile_frame, profile_track)
+from viso_tpu_torch.tools import (bench_pose_graph, diag_drift, diag_loops, diag_mono_seam,
+                                  diag_track_bias, multiprocess_ba, profile_device,
+                                  profile_direct, profile_frame, profile_track)
 
 torch.set_num_threads(2)
 
@@ -42,6 +42,7 @@ TOOLS = {
     "profile_track": (profile_track, SMALL),
     "profile_direct": (profile_direct, SMALL),
     "profile_device": (profile_device, ["--frames", "2", "--height", "96", "--width", "320"]),
+    "bench_pose_graph": (bench_pose_graph, ["--nodes", "20", "--reps", "2"]),
 }
 
 
@@ -75,6 +76,14 @@ def test_tool_runs_on_the_cpu_when_asked(capsys, name):
         names = [st["name"] for st in stages]
         for prog in ("track", "templates", "stereo_kf", "ba"):
             assert prog in names and prog + "_eager" in names
+    if name == "bench_pose_graph":
+        # Eager solves and the program's calls (eager on the CPU) bit-equal.
+        assert [g["key"] for g in out["graphs"]] == [["pose_graph", 32, 64],
+                                                     ["pose_graph_sim3", 32, 64]]
+        for g in out["graphs"]:
+            assert g["bit_equal"] and g["max_gap"] == 0.0 and g["eager"] == 2
+            assert g["device_ms"] is None and g["pool_bytes"] is None
+            assert g["final_cost"] < 1e-3
     if name == "profile_device":
         assert out["frames"] == 2 and out["burst_s"] > 0 and out["k1_launches_per_frame"] == 0
         for key in ("on_device_fps", "device_ms_per_frame", "kernels_per_frame"):

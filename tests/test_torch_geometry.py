@@ -69,6 +69,33 @@ def test_logs_match(rng):
           j_se3.se3_log(R, t))
 
 
+@pytest.mark.parametrize("angle", [1e-3, 1.2])
+@pytest.mark.parametrize("fn", ["se3_exp", "se3_log"])
+def test_jacfwd_unbatched_matches_jax(fn, angle):
+    """`torch.func.jacfwd` of se3_exp (wrt the twist) and se3_log (wrt R
+    and t) at one unbatched float32 input returns float32 Jacobians equal
+    to `jax.jacfwd` of the JAX package's functions to 1e-5, in the Taylor
+    branch (rotation 1e-3 rad) and at a generic angle. A 0-dim angle met
+    by a Python float promoted the forward tangent to float64, and the
+    call raised a dtype error."""
+    import jax
+
+    xi = np.array([0.3, -0.2, 0.5, 0.6, -0.3, 0.2], np.float32)
+    xi[3:] *= angle / np.linalg.norm(xi[3:])
+    if fn == "se3_exp":
+        got = torch.func.jacfwd(t_se3.se3_exp)(torch.from_numpy(xi))
+        want = jax.jacfwd(j_se3.se3_exp)(jnp.asarray(xi))
+    else:
+        R, t = (np.asarray(x) for x in j_se3.se3_exp(jnp.asarray(xi)))
+        got = torch.func.jacfwd(t_se3.se3_log, argnums=(0, 1))(torch.from_numpy(R),
+                                                               torch.from_numpy(t))
+        want = jax.jacfwd(j_se3.se3_log, argnums=(0, 1))(jnp.asarray(R), jnp.asarray(t))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert np.all(np.isfinite(_np(w)))
+        close(g, w)
+
+
 def test_group_ops_match(rng):
     xi = twists(rng, 32)
     R, t = (np.asarray(a) for a in j_se3.se3_exp(jnp.asarray(xi)))

@@ -2,6 +2,9 @@
 the forward-mode edge Jacobians against `jax.jacfwd`, and LM solves on
 the dense and the PCG path."""
 
+import functools
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -185,3 +188,159 @@ def test_cached_solve_routes_to_pcg_at_bucket_512_like_reference(routes):
     np.testing.assert_allclose(out.t[:K].numpy(), np.asarray(outj.t)[:K], atol=1e-4)
     np.testing.assert_allclose(float(info["final_cost"]), float(infoj["final_cost"]), rtol=1e-4)
     assert float(info["final_cost"]) < 1e-4 * float(info["initial_cost"])
+
+
+# -- the normal equations' assembly ------------------------------------------
+
+
+def reference_assembly(r, J, w, ei, ej, K, v):
+    """The JAX package's assembly by `.at[].add` (`_gn_step`,
+    `_gn_step_pcg`), for d-DoF nodes (J: (E, m, 2d)): the undamped dense
+    H in the flat (dK x dK) layout and its b, PCG's b and block diagonal
+    D, and the undamped matvec J^T W J v."""
+    r, J, w, ei, ej, v = (jnp.asarray(x) for x in (r, J, w, ei, ej, v))
+    d = J.shape[-1] // 2
+    Ji, Jj = J[..., :d], J[..., d:]
+    Jiw, Jjw = Ji * w[:, None, None], Jj * w[:, None, None]
+    H = jnp.zeros((K, K, d, d), J.dtype)
+    H = H.at[ei, ei].add(jnp.einsum("eai,eaj->eij", Jiw, Ji))
+    H = H.at[ej, ej].add(jnp.einsum("eai,eaj->eij", Jjw, Jj))
+    H = H.at[ei, ej].add(jnp.einsum("eai,eaj->eij", Jiw, Jj))
+    H = H.at[ej, ei].add(jnp.einsum("eai,eaj->eij", Jjw, Ji))
+    b = jnp.zeros((K, d), J.dtype)
+    b = b.at[ei].add(-jnp.einsum("eai,ea->ei", Jiw, r))
+    b = b.at[ej].add(-jnp.einsum("eai,ea->ei", Jjw, r))
+    D = jnp.zeros((K, d, d), J.dtype)
+    D = D.at[ei].add(jnp.einsum("eai,eaj->eij", Jiw, Ji))
+    D = D.at[ej].add(jnp.einsum("eai,eaj->eij", Jjw, Jj))
+    y = (jnp.einsum("eab,eb->ea", Ji, v[ei]) + jnp.einsum("eab,eb->ea", Jj, v[ej])) * w[:, None]
+    hv = jnp.zeros((K, d), J.dtype)
+    hv = hv.at[ei].add(jnp.einsum("eab,ea->eb", Ji, y))
+    hv = hv.at[ej].add(jnp.einsum("eab,ea->eb", Jj, y))
+    return dict(H=H.transpose(0, 2, 1, 3).reshape(d * K, d * K), b_dense=b.reshape(-1),
+                b=b, D=D, hv=hv)
+
+
+def port_assembly(pg, r, J, w, ei, ej, K, v, route):
+    """The port's assembly of the same quantities on one route: "dense",
+    "pcg" (the CPU's ordered node sums) or "pcg-product" (the card's
+    one-hot products, here on the CPU)."""
+    if route == "dense":
+        H, b = pg.dense_system(r, J, w, ei, ej, K)
+        return dict(H=H, b_dense=b)
+    node_sum = functools.partial(pg.node_sum, ordered=route == "pcg")
+    with mock.patch.object(pg, "node_sum", node_sum):
+        b, D, jtwj = pg.pcg_system(r, J, w, ei, ej, K)
+        return dict(b=b, D=D, hv=jtwj(v))
+
+
+def check_assembly(pg, r, J, w, ei, ej, K, route):
+    """The port's assembly on `route` against the reference's, each
+    quantity to 1e-5 of its largest entry."""
+    v = torch.tensor(np.random.default_rng(7).normal(size=(K, J.shape[-1] // 2)),
+                     dtype=torch.float32)
+    ref = reference_assembly(r.numpy(), J.numpy(), w.numpy(), ei.numpy(), ej.numpy(), K,
+                             v.numpy())
+    got = port_assembly(pg, r, J, w, ei, ej, K, v, route)
+    for name, x in got.items():
+        want = np.asarray(ref[name])
+        assert x.shape == want.shape and x.dtype == torch.float32, name
+        scale = np.abs(want).max()
+        assert scale > 0, name
+        assert np.abs(x.numpy() - want).max() <= 1e-5 * scale, name
+
+
+def _assembly_graph():
+    """`_loop_graph` (40 nodes padded to 64, 42 edges padded to 64) with
+    two edges parallel to odometry edges (one each way) and one real edge
+    masked; the masked edge's measurement is finite garbage, so the
+    reference's assembly is finite too."""
+    pR, pt, edges = _loop_graph(np.random.default_rng(2))
+    i, j, Rm, tm, _ = edges[10]
+    edges.append((i, j, (so3_exp([0.02, 0.0, 0.01]) @ Rm).astype(np.float32), tm + 0.05, 3.0))
+    edges.append((j, i, Rm.T.copy(), (-Rm.T @ tm).astype(np.float32), 0.5))
+    edges.append((3, 20, np.eye(3, dtype=np.float32), np.full(3, 7.0, np.float32), 1.0))
+    gt = t_pg.pad_graph(pR, pt, edges, device="cpu")
+    gj, _ = j_pg.solve_padded(pR, pt, edges, j_pg.PGParams(iters=0))
+    masked = len(edges) - 1
+    gt = gt._replace(edge_mask=gt.edge_mask.clone().index_fill_(0, torch.tensor(masked), False))
+    gj = gj._replace(edge_mask=gj.edge_mask.at[masked].set(False))
+    return gt, gj, masked
+
+
+@pytest.mark.parametrize("route", ["dense", "pcg", "pcg-product"])
+def test_assembly_matches_reference(route):
+    """The dense H and b, PCG's b and D and one matvec, summed without
+    atomics (`dense_system`, `pcg_system`), against the JAX package's
+    `.at[].add` assembly of the same linearization (the reference's
+    residuals, Jacobians and weights) on a graph with parallel edges, a
+    masked edge, padded edges and padded nodes: to 1e-5 of each
+    quantity's largest entry."""
+    _, gj, _ = _assembly_graph()
+    K = gj.R.shape[0]
+    r, J, w, _ = (torch.tensor(np.asarray(x)) for x in
+                  j_pg._edge_system(gj.R, gj.t, gj, j_pg.PGParams()))
+    assert float(w[~torch.tensor(np.asarray(gj.edge_mask))].abs().max()) == 0.0
+    check_assembly(t_pg, r, J, w, torch.tensor(np.asarray(gj.edge_i)),
+                   torch.tensor(np.asarray(gj.edge_j)), K, route)
+
+
+@pytest.mark.parametrize("ordered", [True, False])
+def test_node_sum_against_scatter_add(ordered):
+    """`node_sum` of the assembly graph's slot rows against the JAX
+    package's `.at[].add` of the same rows: the ordered sum (the CPU's)
+    bit for bit, the one-hot product (the card's) to 1e-6 of the largest
+    entry; the dead slots' rows (masked and padded edges) zero, as they
+    are in an assembly."""
+    gt, _, _ = _assembly_graph()
+    K = gt.R.shape[0]
+    w = gt.edge_weight * gt.edge_mask
+    slots = torch.cat([gt.edge_i, gt.edge_j])
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(slots.shape[0], 6)) * np.exp(rng.normal(size=(slots.shape[0], 1)) * 3)
+    x = torch.tensor(x, dtype=torch.float32) * (torch.cat([w, w]) != 0)[:, None]
+    got = t_pg.node_sum(slots, K, torch.float32, ordered)(x)
+    want = np.asarray(jnp.zeros((K, 6), jnp.float32).at[jnp.asarray(slots.numpy())].add(
+        jnp.asarray(x.numpy())))
+    if ordered:
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        assert np.abs(got.numpy() - want).max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("route", ["dense", "pcg", "pcg-product"])
+def test_masked_edges_add_nothing(route):
+    """A masked edge whose measurement is not finite (its residual and
+    Jacobian NaN) adds nothing to the port's assembly, not even a NaN: the
+    same sums, bit for bit, as with a finite measurement there."""
+    gt, _, masked = _assembly_graph()
+    K = gt.R.shape[0]
+    bad = gt._replace(t_ij=gt.t_ij.clone().index_fill_(0, torch.tensor(masked), float("nan")))
+    v = torch.ones((K, 6))
+    out = []
+    for g in (gt, bad):
+        r, J, w, _ = t_pg._edge_system(g.R, g.t, g, t_pg.PGParams())
+        out.append(port_assembly(t_pg, r, J, w, g.edge_i, g.edge_j, K, v, route))
+    assert not torch.isfinite(t_pg._edge_system(bad.R, bad.t, bad, t_pg.PGParams())[1]).all()
+    for name in out[0]:
+        assert torch.isfinite(out[1][name]).all(), name
+        assert torch.equal(out[0][name], out[1][name]), name
+
+
+@pytest.mark.parametrize("name", ["pose_graph.py", "pose_graph_sim3.py"])
+def test_no_atomic_assembly_in_sources(name):
+    """The pose graphs' sources hold no scatter-add: no `index_add`,
+    `index_put(..., accumulate=True)`, `scatter_add` or `scatter_reduce`,
+    whose CUDA kernels sum with atomics in no fixed order."""
+    import ast
+    import pathlib
+
+    src = (pathlib.Path(t_pg.__file__).parent / name).read_text()
+    calls = [n for n in ast.walk(ast.parse(src)) if isinstance(n, ast.Call)]
+    names = {n.func.attr if isinstance(n.func, ast.Attribute) else getattr(n.func, "id", "")
+             for n in calls}
+    assert not names & {"index_add", "index_add_", "scatter_add", "scatter_add_",
+                        "scatter_reduce", "scatter_reduce_", "index_reduce", "index_reduce_"}
+    assert not [n for n in calls if any(k.arg == "accumulate" for k in n.keywords)]
+    for word in ("index_add", "scatter_add", "accumulate=True", "use_deterministic_algorithms"):
+        assert word not in src, word

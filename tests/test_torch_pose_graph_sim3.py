@@ -213,3 +213,61 @@ def test_cached_solve_routes_to_pcg_at_bucket_512_like_reference(monkeypatch):
     c_j = centers(np.asarray(outj.s)[:K], np.asarray(outj.R)[:K], np.asarray(outj.t)[:K])
     assert np.abs(centers(s_out, out.R[:K].numpy(), out.t[:K].numpy()) - c_j).max() < 1e-2
     assert float(info["final_cost"]) < 1e-4 * float(info["initial_cost"])
+
+
+def _assembly_graph():
+    """tests/test_loop.py's drift problem at 24 nodes (padded to 32) with
+    two edges parallel to odometry edges (one each way) and one real edge
+    masked, its measurement finite garbage (27 edges padded to 32)."""
+    edges, pg_s, pg_R, pg_t, _, _ = drift_problem(24, 1.01, n_loops=2,
+                                                  noise=np.random.default_rng(3))
+    i, j, s_m, Rm, tm, _ = edges[6]
+    edges.append((i, j, s_m * 1.02, (so3_exp([0.0, 0.02, 0.01]) @ Rm).astype(np.float32),
+                  tm + 0.05, 4.0))
+    si, Ri, ti = sim3.inverse(s_m, Rm, tm)
+    edges.append((j, i, float(si), Ri.astype(np.float32), ti.astype(np.float32), 0.5))
+    edges.append((2, 15, 3.0, np.eye(3, dtype=np.float32), np.full(3, 7.0, np.float32), 1.0))
+    gt = t_pgs.pad_graph(pg_s, pg_R, pg_t, edges, device="cpu")
+    gj, _ = j_pgs.solve_padded(pg_s, pg_R, pg_t, edges, j_pgs.PGParams(iters=0))
+    masked = len(edges) - 1
+    gt = gt._replace(edge_mask=gt.edge_mask.clone().index_fill_(0, torch.tensor(masked), False))
+    gj = gj._replace(edge_mask=gj.edge_mask.at[masked].set(False))
+    return gt, gj, masked
+
+
+@pytest.mark.parametrize("route", ["dense", "pcg", "pcg-product"])
+def test_assembly_matches_reference(route):
+    """tests/test_torch_pose_graph.py's assembly check with 7-DoF nodes:
+    the dense H and b, PCG's b and D and one matvec, summed without atomics,
+    against the JAX package's `.at[].add` assembly of its own Sim(3)
+    linearization, on a graph with parallel, masked and padded edges and
+    padded nodes, to 1e-5 of each quantity's largest entry."""
+    from test_torch_pose_graph import check_assembly
+
+    _, gj, _ = _assembly_graph()
+    K = gj.R.shape[0]
+    r, J, w, _ = (torch.tensor(np.asarray(x)) for x in
+                  j_pgs._edge_system(gj.s, gj.R, gj.t, gj, j_pgs.PGParams(), K))
+    assert J.shape[1:] == (7, 14)
+    check_assembly(t_pgs.pose_graph, r, J, w, torch.tensor(np.asarray(gj.edge_i)),
+                   torch.tensor(np.asarray(gj.edge_j)), K, route)
+
+
+@pytest.mark.parametrize("route", ["dense", "pcg", "pcg-product"])
+def test_masked_edges_add_nothing(route):
+    """A masked Sim(3) edge whose measured scale is NaN adds nothing to the
+    assembly, not even a NaN: bit-equal to a finite measurement there."""
+    from test_torch_pose_graph import port_assembly
+
+    gt, _, masked = _assembly_graph()
+    K = gt.R.shape[0]
+    bad = gt._replace(s_ij=gt.s_ij.clone().index_fill_(0, torch.tensor(masked), float("nan")))
+    v = torch.ones((K, 7))
+    out = []
+    for g in (gt, bad):
+        r, J, w, _ = t_pgs._edge_system(g.s, g.R, g.t, g, t_pgs.PGParams())
+        assert torch.isfinite(J).all() == (g is gt)
+        out.append(port_assembly(t_pgs.pose_graph, r, J, w, g.edge_i, g.edge_j, K, v, route))
+    for name in out[0]:
+        assert torch.isfinite(out[1][name]).all(), name
+        assert torch.equal(out[0][name], out[1][name]), name

@@ -6,11 +6,16 @@ r = log(T_ij^-1 * T_i * T_j^-1) in se(3). LM with a dense (6K x 6K)
 solve below `pcg_threshold` nodes and matrix-free block-Jacobi PCG
 above it. Per-edge 6x12 Jacobians are forward-mode derivatives of the
 left-perturbed residual (`torch.func.jvp`, where the JAX package uses
-`jax.jacfwd` under `jax.vmap`), scatter-added into the system. Edges and
-nodes are fixed-capacity masked tensors; `solve_padded` pads a growing
-graph to power-of-two buckets as the JAX package does (here it only
-keeps shapes in a few sizes). The LM loop runs eagerly, with
-accept/reject on device values and no host sync.
+`jax.jacfwd` under `jax.vmap`). The JAX package scatter-adds them into
+the system (`.at[].add`, which XLA sums in a fixed order); here no sum
+is an atomic: the dense system is A^T W A with A placed by the one-hot
+node-by-endpoint incidence (`incidence`, `dense_system`), and PCG's node
+sums are products with it on the card and sums in the reference's order
+on the CPU (`node_sum`), so a solve is a function of its padded graph,
+eager or replayed. Edges and nodes are fixed-capacity masked tensors;
+`solve_padded` pads a growing graph to power-of-two buckets as the JAX
+package does (here it only keeps shapes in a few sizes). The LM loop
+runs eagerly, with accept/reject on device values and no host sync.
 
 The linearization (`forward_jacobian`, `robust_weights`), both linear
 solvers (`dense_delta`, `pcg_delta`) and the LM loop
@@ -99,10 +104,8 @@ def forward_jacobian(res, zeros):
     """Residuals (E, m) of `res(xi)` at xi = `zeros` (E, n) and their
     Jacobians (E, m, n): forward mode, one column per basis direction of
     the n perturbation coordinates, pushed through all E edges at once
-    (`torch.func.vmap` over `torch.func.jvp`). The edge axis stays a real
-    batch axis on purpose: under a per-edge vmap every scalar of the
-    residual is 0-dim, and forward-mode AD then promotes the tangent of a
-    0-dim tensor plus a Python float to float64."""
+    (`torch.func.vmap` over `torch.func.jvp`), so each column is one
+    batched pass over the edges rather than E per-edge ones."""
     E, n = zeros.shape
 
     def column(v):
@@ -127,11 +130,9 @@ def robust_weights(r, graph, params):
     """Per-edge information x mask x Huber weights, and the free-node mask
     (node_mask minus the first `num_fixed` gauge nodes) as floats."""
     r_norm = torch.linalg.norm(r, dim=-1)
-    w = (
-        graph.edge_weight
-        * graph.edge_mask
-        * robust.huber_weight(r_norm, params.huber)
-    )
+    # 0 where masked, even where a masked edge's residual is not finite.
+    w = torch.where(graph.edge_mask,
+                    graph.edge_weight * robust.huber_weight(r_norm, params.huber), 0.0)
     K = graph.node_mask.shape[0]
     free = graph.node_mask & (torch.arange(K, device=r.device) >= params.num_fixed)
     return w, free.to(r.dtype)
@@ -145,59 +146,107 @@ def _edge_system(R, t, graph: PoseGraph, params: PGParams):
     return (r, J) + robust_weights(r, graph, params)
 
 
+def incidence(slots, K: int, dtype):
+    """The one-hot (K, 2E) node-by-slot matrix of the edges' endpoint slots
+    cat(ei, ej) (2E,): a product with it places or sums each slot's rows
+    at its node in a fixed order, with no atomics."""
+    return (torch.arange(K, device=slots.device)[:, None] == slots).to(dtype)
+
+
+def node_sum(slots, K: int, dtype, ordered=None):
+    """x (2E, ...) -> (K, ...): the rows of each node's slots summed in a
+    fixed order, with no atomics and no host read, so a solve is a
+    function of its padded graph. Unordered (the card's default): one
+    product with the one-hot incidence, a fixed-shape GEMM. Ordered (the
+    CPU's): each node's slots left to right in slot order -- its edges as
+    node i, then as node j, each in edge order, the order of the
+    reference's two scatter-adds -- through a stable sort by node and
+    `torch.segment_reduce` (on an H100 that op synchronises with the host,
+    and the PCG solve ran 1.36x slower with it). The CPU tests hold the
+    PCG against the reference, and its 96 CG iterations carry a last-bit
+    difference in a node's sum on to the final cost."""
+    if not (slots.device.type == "cpu" if ordered is None else ordered):
+        P = incidence(slots, K, dtype)
+        return lambda x: (P @ x.reshape(x.shape[0], -1)).view((K,) + x.shape[1:])
+    by_node, order = torch.sort(slots, stable=True)
+    nodes = torch.arange(K, device=slots.device)
+    counts = torch.searchsorted(by_node, nodes, right=True) - torch.searchsorted(by_node, nodes)
+    return lambda x: torch.segment_reduce(x[order], "sum", lengths=counts, unsafe=True)
+
+
+def _sides(r, J, w):
+    """r (E, m) and the Jacobian's two sides (2, E, m, d), wrt node i and
+    node j, with the edges of weight 0 (masked, padded) zeroed: in a
+    product with the incidence they add nothing, not even a NaN."""
+    E, m, d2 = J.shape
+    live = (w != 0)[:, None]
+    Js = torch.where(live[..., None], J, 0.0).view(E, m, 2, d2 // 2)
+    return torch.where(live, r, 0.0), Js.permute(2, 0, 1, 3).contiguous()
+
+
+def dense_system(r, J, w, ei, ej, K: int):
+    """The undamped normal equations of a graph with d-DoF nodes (J: (E,
+    m, 2d)) in the flat (dK x dK) layout: H = A^T W A and b = -A^T W r,
+    with A (E m, K d) the edge Jacobians placed at their nodes' columns
+    by the incidence. Parallel edges add up; no atomics."""
+    E, m, d2 = J.shape
+    d = d2 // 2
+    r, Js = _sides(r, J, w)
+    P = incidence(torch.cat([ei, ej]), K, J.dtype)
+    A = torch.einsum("kse,seac->eakc", P.view(K, 2, E), Js)
+    Aw = (A * w[:, None, None, None]).reshape(E * m, K * d)
+    A = A.reshape(E * m, K * d)
+    return Aw.T @ A, -(Aw.T @ r.reshape(E * m))
+
+
 def dense_delta(r, J, w, f, lam, ei, ej, K: int):
-    """LM step of a graph with d-DoF nodes (J: (E, m, 2d)) from the dense
-    (dK x dK) damped normal equations, assembled with scatter-adds; fixed
-    nodes get identity rows and a zero step. Returns (K, d), non-finite
-    entries zeroed."""
+    """LM step of a graph with d-DoF nodes from the dense (dK x dK) damped
+    normal equations (`dense_system`); fixed nodes get identity rows and a
+    zero step. Returns (K, d), non-finite entries zeroed."""
     d = J.shape[-1] // 2
-    Ji = J[..., :d] * w[:, None, None]    # weighted (E, m, d) wrt node i
-    Jj = J[..., d:] * w[:, None, None]
-    dtype, dev = J.dtype, J.device
-    H = torch.zeros((K, K, d, d), dtype=dtype, device=dev)
-    b = torch.zeros((K, d), dtype=dtype, device=dev)
-    H.index_put_((ei, ei), torch.einsum("eai,eaj->eij", Ji, J[..., :d]), accumulate=True)
-    H.index_put_((ej, ej), torch.einsum("eai,eaj->eij", Jj, J[..., d:]), accumulate=True)
-    H.index_put_((ei, ej), torch.einsum("eai,eaj->eij", Ji, J[..., d:]), accumulate=True)
-    H.index_put_((ej, ei), torch.einsum("eai,eaj->eij", Jj, J[..., :d]), accumulate=True)
-    b.index_add_(0, ei, -torch.einsum("eai,ea->ei", Ji, r))
-    b.index_add_(0, ej, -torch.einsum("eai,ea->ei", Jj, r))
-
-    # Damping + gauge freeze.
-    eye = torch.eye(d, dtype=dtype, device=dev)
-    k = torch.arange(K, device=dev)
-    diag_blocks = H[k, k]
-    diag_scale = torch.einsum("kii->k", diag_blocks) / float(d) + 1e-6
-    H[k, k] += lam * diag_scale[:, None, None] * eye
-    H = H * f[:, None, None, None] * f[None, :, None, None]
-    H[k, k] += (1.0 - f)[:, None, None] * eye
-    b = b * f[:, None]
-
-    H_flat = H.permute(0, 2, 1, 3).reshape(d * K, d * K)
+    H, b = dense_system(r, J, w, ei, ej, K)
+    # Damping + gauge freeze, on the diagonal of the flat system (the
+    # reference adds lam * scale * I to each (d x d) diagonal block).
+    diag = H.diagonal().view(K, d)
+    diag_scale = diag.sum(-1) / float(d) + 1e-6
+    diag.add_((lam * diag_scale)[:, None])
+    fd = f[:, None].expand(K, d).reshape(K * d)
+    H = H * fd[:, None] * fd[None, :]
+    H.diagonal().add_(1.0 - fd)
     # solve_ex does not raise on a singular system; the NaN step is zeroed.
-    delta, _ = torch.linalg.solve_ex(H_flat, b.reshape(d * K))
+    delta, _ = torch.linalg.solve_ex(H, b * fd)
     return _finite_step(delta.reshape(K, d), f)
+
+
+def pcg_system(r, J, w, ei, ej, K: int):
+    """PCG's right-hand side b = -J^T W r (K, d), block diagonal D_kk =
+    sum J^T W J (K, d, d), and the undamped matvec v -> J^T W J v (K, d):
+    each a sum over the nodes' slots (`node_sum`), never H itself."""
+    E, m, d2 = J.shape
+    d = d2 // 2
+    r, Js = _sides(r, J, w)
+    slots = torch.cat([ei, ej])
+    total = node_sum(slots, K, J.dtype)
+    Jw = Js * w[:, None, None]
+    b = -total(torch.einsum("seai,ea->sei", Jw, r).reshape(2 * E, d))
+    D = total(torch.einsum("seai,seaj->seij", Jw, Js).reshape(2 * E, d, d))
+
+    def jtwj(v):
+        y = torch.einsum("seab,seb->sea", Js, v[slots].view(2, E, d))
+        y = (y[0] + y[1]) * w[:, None]
+        return total(torch.einsum("seab,ea->seb", Js, y).reshape(2 * E, d))
+
+    return b, D, jtwj
 
 
 def pcg_delta(r, J, w, f, lam, ei, ej, K: int, iters: int):
     """Matrix-free LM step: block-Jacobi-preconditioned CG on the edge
-    list, `iters` iterations. Never materializes H: each matvec is two
-    gathers, two batched (m x d) products and two scatter-adds over the E
-    edges."""
+    list, `iters` iterations. Never materializes H: each matvec is one
+    gather, two batched products over both sides of the E edges and one
+    sum over the nodes' slots (`pcg_system`)."""
     d = J.shape[-1] // 2
-    Ji = J[..., :d]
-    Jj = J[..., d:]
     dtype, dev = J.dtype, J.device
-
-    # RHS b = -J^T W r and block diagonal D_kk = sum J^T W J.
-    Jiw = Ji * w[:, None, None]
-    Jjw = Jj * w[:, None, None]
-    b = torch.zeros((K, d), dtype=dtype, device=dev)
-    b.index_add_(0, ei, -torch.einsum("eai,ea->ei", Jiw, r))
-    b.index_add_(0, ej, -torch.einsum("eai,ea->ei", Jjw, r))
-    D = torch.zeros((K, d, d), dtype=dtype, device=dev)
-    D.index_add_(0, ei, torch.einsum("eai,eaj->eij", Jiw, Ji))
-    D.index_add_(0, ej, torch.einsum("eai,eaj->eij", Jjw, Jj))
+    b, D, jtwj = pcg_system(r, J, w, ei, ej, K)
 
     # LM damping as in the dense path: lam * mean-diag scale * I.
     eye = torch.eye(d, dtype=dtype, device=dev)
@@ -210,14 +259,7 @@ def pcg_delta(r, J, w, f, lam, ei, ej, K: int, iters: int):
     b = b * f[:, None]
 
     def hv(v):
-        y = (
-            torch.einsum("eab,eb->ea", Ji, v[ei])
-            + torch.einsum("eab,eb->ea", Jj, v[ej])
-        ) * w[:, None]
-        out = torch.zeros((K, d), dtype=dtype, device=dev)
-        out.index_add_(0, ei, torch.einsum("eab,ea->eb", Ji, y))
-        out.index_add_(0, ej, torch.einsum("eab,ea->eb", Jj, y))
-        out = out + damp[:, None] * v
+        out = jtwj(v) + damp[:, None] * v
         return out * f[:, None] + (1.0 - f)[:, None] * v
 
     def prec(v):

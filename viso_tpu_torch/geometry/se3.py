@@ -7,6 +7,11 @@ dimensions. Small-angle paths use Taylor expansions selected with
 `torch.where`: in float32, 1 - cos(theta) and theta - sin(theta) are pure
 cancellation noise below theta ~ 1e-2, so the switch sits at
 theta^2 < 1e-4, not near machine epsilon.
+
+Angles and their coefficients keep a trailing axis of 1 (`keepdim`): on an
+unbatched input they would be 0-dim, and forward-mode AD
+(`torch.func.jacfwd`) promotes the tangent of a 0-dim tensor met by a
+Python float to float64.
 """
 
 from __future__ import annotations
@@ -41,7 +46,8 @@ def _eye_like(M):
 
 
 def _taylor_coeffs(theta_sq):
-    """(A, B, C) = (sin t/t, (1-cos t)/t^2, (t - sin t)/t^3), Taylor-safe."""
+    """(A, B, C) = (sin t/t, (1-cos t)/t^2, (t - sin t)/t^3), Taylor-safe,
+    of theta_sq (..., 1)."""
     theta = torch.sqrt(theta_sq + _EPS)
     small = theta_sq < 1e-4
     A = torch.where(small, 1.0 - theta_sq / 6.0, torch.sin(theta) / theta)
@@ -58,11 +64,11 @@ def _taylor_coeffs(theta_sq):
 
 def so3_exp(w):
     """Rodrigues: axis-angle (..., 3) -> rotation matrix (..., 3, 3)."""
-    theta_sq = torch.sum(w * w, dim=-1)
+    theta_sq = torch.sum(w * w, dim=-1, keepdim=True)
     A, B, _ = _taylor_coeffs(theta_sq)
     W = hat(w)
     W2 = W @ W
-    return _eye_like(W) + A[..., None, None] * W + B[..., None, None] * W2
+    return _eye_like(W) + A[..., None] * W + B[..., None] * W2
 
 
 def so3_log(R):
@@ -70,19 +76,19 @@ def so3_log(R):
 
     Robust near theta = 0 (Taylor) and theta = pi (diagonal extraction).
     """
-    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    trace = (R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2])[..., None]
     cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0 + 1e-7, 1.0 - 1e-7)
     skew = vee(R - R.transpose(-1, -2))               # = 2 sin(theta) axis
     near_zero = cos_theta > 1.0 - 5e-5                 # theta < ~1e-2
     theta = torch.where(near_zero, 0.0, torch.arccos(cos_theta))
-    theta_sq_t = torch.sum(skew * skew, dim=-1) * 0.25
+    theta_sq_t = torch.sum(skew * skew, dim=-1, keepdim=True) * 0.25
     sin_theta = torch.sin(theta)
     generic_scale = torch.where(
         near_zero,
         0.5 + theta_sq_t / 12.0,  # Taylor of theta/(2 sin theta)
         theta / (2.0 * sin_theta + _EPS),
     )
-    w_generic = generic_scale[..., None] * skew
+    w_generic = generic_scale * skew
     # Near-pi branch: w = theta * axis, axis from largest diagonal of (R + I)/2.
     S = R + _eye_like(R)
     diag = torch.stack([S[..., 0, 0], S[..., 1, 1], S[..., 2, 2]], dim=-1)
@@ -93,21 +99,21 @@ def so3_log(R):
     sign = torch.where(
         torch.sum(skew * axis, dim=-1, keepdim=True) < 0, -1.0, 1.0
     )
-    w_pi = theta[..., None] * axis * sign
+    w_pi = theta * axis * sign
     near_pi = (math.pi - theta) < 1e-3
-    return torch.where(near_pi[..., None], w_pi, w_generic)
+    return torch.where(near_pi, w_pi, w_generic)
 
 
 def se3_exp(xi):
     """Twist (..., 6) [rho, phi] (translation first) -> (R, t)."""
     rho, phi = xi[..., :3], xi[..., 3:]
-    theta_sq = torch.sum(phi * phi, dim=-1)
+    theta_sq = torch.sum(phi * phi, dim=-1, keepdim=True)
     A, B, C = _taylor_coeffs(theta_sq)
     W = hat(phi)
     W2 = W @ W
     eye = _eye_like(W)
-    R = eye + A[..., None, None] * W + B[..., None, None] * W2
-    V = eye + B[..., None, None] * W + C[..., None, None] * W2
+    R = eye + A[..., None] * W + B[..., None] * W2
+    V = eye + B[..., None] * W + C[..., None] * W2
     t = torch.einsum("...ij,...j->...i", V, rho)
     return R, t
 
@@ -115,7 +121,7 @@ def se3_exp(xi):
 def se3_log(R, t):
     """(R, t) -> twist (..., 6) [rho, phi]; inverse of `se3_exp`."""
     phi = so3_log(R)
-    theta_sq = torch.sum(phi * phi, dim=-1)
+    theta_sq = torch.sum(phi * phi, dim=-1, keepdim=True)
     A, B, _ = _taylor_coeffs(theta_sq)
     W = hat(phi)
     W2 = W @ W
@@ -125,7 +131,7 @@ def se3_log(R, t):
         1.0 / 12.0 + theta_sq / 720.0,
         (1.0 - A / (2.0 * B + _EPS)) / (theta_sq + _EPS),
     )
-    V_inv = _eye_like(W) - 0.5 * W + coef[..., None, None] * W2
+    V_inv = _eye_like(W) - 0.5 * W + coef[..., None] * W2
     rho = torch.einsum("...ij,...j->...i", V_inv, t)
     return torch.cat([rho, phi], dim=-1)
 

@@ -47,10 +47,11 @@ and every all-reduce hands each rank the same sums. The nodes, the
 database and each loop detection follow from the raw poses and the map
 (and the database's generator, seeded alike), and the throttle counts
 node ids, so every rank solves the same graphs at the same nodes. The
-solved node poses, and so `trajectory()`, agree only within a tolerance
-on CUDA: the pose-graph LM accumulates with atomics
-(`backend/pose_graph.py`), whose order differs from run to run
-(chip_smoke.py phase 10(e) measures the ranks' spread).
+solved node poses, and so `trajectory()`, are equal across ranks too:
+the pose-graph LM sums its normal equations in a fixed order, with no
+atomics (`backend/pose_graph.py`), so a solve is a function of its padded
+graph, eager or replayed (chip_smoke.py phase 10(e) holds the ranks'
+corrected trajectories bit for bit).
 
 `LoopLayer` holds what stereo and monocular SLAM (`slam/mono_full.py`)
 share: the node and edge bookkeeping, the hook's two sides, the throttle,

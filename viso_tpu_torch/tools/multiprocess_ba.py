@@ -24,9 +24,8 @@ rank on the first card (`bench_dist_ba.backend_for`), in three modes:
              `distribute_ba=True` and `stats_deterministic=True` on every
              rank, under the dryrun's assertions (>= 3 nodes and
              keyframes, a finite pose moved > 0.2 m forward, the window
-             BA on the group, no hook error); every rank's raw trajectory
-             equal to rank 0's and its corrected one within
-             SLAM_RANK_GAP_M.
+             BA on the group, no hook error); every rank's raw and
+             corrected trajectories equal to rank 0's bit for bit.
 
 `launch` is the spawner the tests, `bench_dist_ba` and chip_smoke.py use:
 each rank sets one CPU thread, joins the group with a 60 s timeout, and
@@ -55,10 +54,6 @@ ENGINE_FRAMES = 14
 ENGINE_ATE_M = 0.08
 ENGINE_DIFF_M = 0.05
 COST_RTOL = 1e-3
-# The ranks' corrected camera centres (m): each rank solves its own pose
-# graph, whose LM accumulates with atomics on CUDA (slam/full.py), so
-# only the raw trajectories are held equal.
-SLAM_RANK_GAP_M = 1e-3
 
 
 def _rank_main(rank, world, store, out_dir, backend, device, fn, args):
@@ -346,10 +341,15 @@ def slam_ok(r) -> bool:
 
 
 def slam_ranks_gap(ranks):
-    """(raw trajectories all equal to rank 0's, largest corrected centre
-    gap to rank 0's in m)."""
-    raw = all(np.array_equal(r["c_raw"], ranks[0]["c_raw"]) for r in ranks)
-    return raw, max(float(np.abs(r["c"] - ranks[0]["c"]).max()) for r in ranks)
+    """(raw trajectories all equal to rank 0's, corrected ones all equal to
+    rank 0's, largest corrected centre gap to rank 0's in m); equal means
+    bit for bit: each rank solves its own pose graphs, and a solve is a
+    function of its graph (slam/full.py)."""
+    def same(key):
+        return all(r[key].tobytes() == ranks[0][key].tobytes() for r in ranks)
+
+    return (same("c_raw"), same("c"),
+            max(float(np.abs(r["c"] - ranks[0]["c"]).max()) for r in ranks))
 
 
 def cli_rank(device, argv):
@@ -398,10 +398,10 @@ def main(argv=None) -> int:
     print(f"{args.procs} ranks over {backend}", flush=True)
     ok = True
     if args.slam:
-        raw_equal, gap = slam_ranks_gap(results)
-        print(f"SLAM ranks: raw trajectories equal {raw_equal}, corrected centres "
-              f"within {gap:.3g} m of rank 0's (limit {SLAM_RANK_GAP_M})", flush=True)
-        ok = raw_equal and gap <= SLAM_RANK_GAP_M
+        raw_equal, corrected_equal, gap = slam_ranks_gap(results)
+        print(f"SLAM ranks: raw trajectories equal {raw_equal}, corrected equal "
+              f"{corrected_equal} (largest gap to rank 0's {gap:.3g} m)", flush=True)
+        ok = raw_equal and corrected_equal
     for r in results:
         if args.slam:
             good = slam_ok(r)
