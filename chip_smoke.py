@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each printed on its own lines with its wall time; any failure
-raises and exits non-zero:
+raises and exits non-zero. Phases 4, 6 and 7's sequences are rendered on
+the host by RENDER_WORKERS worker processes from the start of the run
+(`Renders`), while the card runs the phases before them:
 
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. the build: compiles every kernel source in viso_tpu_torch/csrc/ (one
@@ -33,7 +35,10 @@ raises and exits non-zero:
      frame under torch.profiler (no copy of the keyframe stack), then a
      clean run for frames/s over 32 frames after a 12-frame warmup. K1's
      launch counter must rise during the run, and the ATE against ground
-     truth (no scale alignment) must stay below 0.05 m;
+     truth (no scale alignment) must stay below 0.05 m; (d) the same
+     frames under stats_deterministic, held to the JAX package's CPU run
+     (JAX_HEADLINE_*): the same keyframes, frames 1-4's camera centres
+     within HEADLINE_JAX_BAND_M, later frames' gaps printed;
   5. K2, the row-aligned extraction kernel, on its main path: the
      extraction micro-benchmark (`python -m
      viso_tpu_torch.tools.bench_extract`), which holds K2 against its
@@ -113,15 +118,16 @@ raises and exits non-zero:
      `multiprocess_ba --engine`'s StereoVO over 2 gloo ranks on the card,
      each within 0.05 m of its single-rank run, ATEs below 0.08 m, ranks
      equal, K1 launched, the solve run "eager (gloo)"; (e) phase 6's cell
-     (the 500-frame orbit at 184x616, 256 features, 1024 landmarks)
-     with distribute_ba and stats_deterministic at world size 1 and over
+     (the orbit at 184x616, 256 features, 1024 landmarks; its first
+     DIST_CELL_FRAMES frames, past its first loops) with distribute_ba
+     and stats_deterministic at world size 1 and over
      2 gloo ranks sharing the card, rank 0 synchronising the whole device
      after every `process()` call: per run frames/s (mean and median per
      call), loops, ATE below 0.15 m, no hook error, K1 launched; the
      ranks' raw and corrected trajectories equal bit for bit, each
      within DIST_CELL_BAND_M of world 1's;
      (f) `run.main(["--distribute", "--mode", "mono-slam", ...])` on the
-     CLI's synthetic run over 2 gloo ranks: tracking reached, the ranks'
+     CLI's synthetic run over 2 gloo ranks, spawned beside (e)'s: tracking reached, the ranks'
      trajectories equal, ATE below 2.0 m, no hook error, K1 launched;
  11. the stats-delay scenario and the diagnostic and profiling tools
      (`viso_tpu_torch/tools/`): (a) tests/test_torch_stats_stress.py's
@@ -224,7 +230,11 @@ raises and exits non-zero:
      similarity alignment), LONG_CPU_LOG_S_TOL (node scales in log) and
      LONG_COST_RTOL of its graph's solve on the CPU, eviction held as in
      (a), the corrected keyframe ATE within LONG_MONO_ATE_LIMIT_M and at
-     most LONG_MONO_OVER_RAW_M above the raw one;
+     most LONG_MONO_OVER_RAW_M above the raw one; the loop funnel as
+     phase 9's, and its loop detections (`diag_loops.LoopRecorder`: every
+     one after the database's wrap, every LONG_MONO_HOLD_EVERY-th before)
+     run again on the card, equal to the run, and held on the CPU given
+     the card's draws and PnP pose as phase 9 holds its loops;
  16. the ingestion path (`bench.py:649-840`), from PNG files in a
      temporary directory through the native decoder's prefetch ring
      (`data/native.Prefetcher`, ring 16 and 3 threads at 184x616, ring 8
@@ -262,6 +272,7 @@ Imports nothing of JAX or viso_tpu. Needs one CUDA device.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -280,6 +291,53 @@ H, W = 376, 1240
 KITTI_FULL = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157)
 N_FRAMES, WARMUP = 44, 12
 ATE_LIMIT_M = 0.05
+# Phase 4(d): the headline again under stats_deterministic, held to the
+# JAX package's deterministic CPU run of the same frames and configuration
+# (`tests/headline_parity.py --package jax --deterministic`, jax 0.9.0 on
+# 8 cores; the keyframes and frames 1-4 are the same on one XLA thread):
+# its keyframes, ATE and every frame's camera centre (m). The port on the
+# CPU reads the same keyframes and parts from these centres by 3.1e-4,
+# 4.7e-4, 3.1e-3 and 7.1e-3 m in frames 1-4: frame 0's stereo keyframe
+# scores disparities on float32 sums of ~4e6, whose rounding puts the SSD
+# on a grid of 1/128 and moves each sub-pixel disparity by up to 0.063 px
+# from a float64 evaluation in either package, and a tie on that grid
+# flips the integer disparity (2 of 385 matches; the first stage that
+# parts, tests/test_torch_headline_parity.py); fed the JAX package's map,
+# the port's track program follows its frames 1-4 to 1.5e-5 m. The card
+# sums in its own order, so frames 1-4 are held within twice the CPU
+# port's largest gap; later frames' gaps are printed, not held.
+JAX_HEADLINE_KEYFRAMES = [0, 5, 10, 15, 20, 25, 30, 35, 40]
+JAX_HEADLINE_ATE_M = 0.044999795
+JAX_HEADLINE_CENTRES = (
+    (-0.0000000, -0.0000000, -0.0000000), (0.0031041, 0.0020403, 0.8004817),
+    (0.0059026, 0.0019003, 1.5986596), (0.0152892, 0.0007407, 2.3980992),
+    (0.0320107, 0.0004202, 3.2017262), (0.0492345, 0.0083721, 4.0053144),
+    (0.0650188, 0.0090344, 4.8053985), (0.0865529, 0.0078447, 5.6030011),
+    (0.1054051, 0.0067283, 6.4015207), (0.1463770, 0.0132609, 7.2145338),
+    (0.1695999, -0.0008044, 8.0016489), (0.1970242, -0.0011979, 8.8011723),
+    (0.2258832, -0.0014977, 9.5978737), (0.2668561, 0.0025957, 10.4030600),
+    (0.3017123, -0.0005786, 11.2023125), (0.3597931, -0.0026158, 12.0083714),
+    (0.3982875, -0.0021160, 12.8065395), (0.4444743, -0.0016991, 13.6079493),
+    (0.4904465, 0.0007624, 14.4093885), (0.5426886, -0.0006832, 15.2050581),
+    (0.6008701, -0.0059591, 16.0137959), (0.6523281, -0.0061619, 16.8127842),
+    (0.7061455, -0.0075102, 17.6115646), (0.7694556, -0.0042991, 18.4116020),
+    (0.8238782, -0.0053666, 19.2103882), (0.8847506, -0.0044243, 19.9899063),
+    (0.9449160, -0.0060648, 20.7852554), (1.0097477, -0.0041674, 21.5812531),
+    (1.0761054, -0.0042863, 22.3741207), (1.1415179, -0.0139545, 23.1519814),
+    (1.2232383, -0.0143626, 23.9495010), (1.2983134, -0.0159328, 24.7466316),
+    (1.3752145, -0.0164986, 25.5429821), (1.4564176, -0.0146440, 26.3317776),
+    (1.5344636, -0.0134761, 27.1366940), (1.6381005, -0.0155125, 27.9263535),
+    (1.7268338, -0.0146082, 28.7134666), (1.8123062, -0.0115341, 29.5099163),
+    (1.8968312, -0.0099169, 30.3213806), (1.9875684, -0.0052877, 31.1129494),
+    (2.0101793, -0.0003157, 31.8070641), (2.1078312, 0.0022152, 32.6024666),
+    (2.2101898, 0.0070825, 33.3961143), (2.3116217, 0.0175654, 34.1900826),
+)
+HEADLINE_JAX_FRAMES = (1, 2, 3, 4)
+HEADLINE_JAX_BAND_M = 0.015
+# Worker processes that render phases 4, 6 and 7's sequences while the
+# card runs (`Renders`): 6 of the card host's 8 cores, one left to this
+# process.
+RENDER_WORKERS = 6
 
 # The reference's 500-frame loop-closure cell (bench.py:604-692).
 SLAM_H, SLAM_W = 184, 616
@@ -368,6 +426,11 @@ DIST_SPAWN_TIMEOUT_S = 120.0
 # centres first 1 mm apart at frame 16, the ranks' ATE 0.0626 m against
 # world 1's 0.0797 m).
 DIST_CELL_RANKS = 2
+# The cell's first DIST_CELL_FRAMES frames: under stats_deterministic a
+# keyframe every 8 frames, so they hold nodes 0-33, and the first loops
+# close at nodes 30 and 31 (frames 240 and 248; 48-60 and 118-123 inliers
+# on the H100 and the CPU), as in the whole 500-frame run.
+DIST_CELL_FRAMES = 272
 DIST_CELL_BAND_M = 0.2
 DIST_CELL_TIMEOUT_S = 600.0
 # Phase 11: tests/test_torch_stats_stress.py's corridor and its ATE bound
@@ -462,6 +525,13 @@ LONG_MONO_SCALES = (0.2, 5.0)
 JAX_LONG_MONO_ATE_M = 1.448187
 LONG_MONO_ATE_LIMIT_M = 2 * JAX_LONG_MONO_ATE_M
 LONG_MONO_OVER_RAW_M = MONO_SLAM_OVER_RAW_M
+# 15(c) holds its loop detections as phase 9 does (the card's replay equal
+# to the run, the hold on the CPU within 1 inlier and
+# MONO_SLAM_HOLD_LOG_TOL): every one after the database's wrap and every
+# LONG_MONO_HOLD_EVERY-th before it. All 229 held in 37-77 s of runs of
+# 827-1,144 s (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md); `python -m
+# viso_tpu_torch.tools.mono_cell --slam --cycles 6 --hold` holds every one.
+LONG_MONO_HOLD_EVERY = 8
 # Phase 16: the ingestion path (`bench.py:649-840`). The prefetch ring at
 # the bench's settings: ring 16 and 3 decode threads at 184x616, ring 8 at
 # 376x1240. (b) the degraded loop cell, `bench_long_slam(degrade=True)`:
@@ -620,12 +690,92 @@ def render_frames(synthetic, scene, intr, h, w, Rs, ts, quantise=False):
     return frames
 
 
-def render_headline(synthetic, camera):
-    """bench.py's headline sequence: the rng-42 corridor, 44 frames."""
+def headline_scene(synthetic, camera):
+    """bench.py's headline scene, intrinsics and ground truth: the rng-42
+    corridor, 44 frames at 0.8 m."""
     scene = synthetic.corridor_scene(np.random.default_rng(42), tex_size=1024, far_z=60.0)
     intr = camera.Intrinsics.create(**KITTI_FULL)
     Rs, ts = synthetic.forward_trajectory(N_FRAMES, step=0.8, yaw_rate=0.003)
-    return render_frames(synthetic, scene, intr, H, W, Rs, ts), Rs, ts
+    return scene, intr, Rs, ts
+
+
+_SCENES: dict = {}
+
+
+def render_part(kind, lo, hi):
+    """Frames lo..hi-1 of phase 4's headline, phase 6's orbit or phase 7's
+    mono corridor, and their ground truth, each frame as the sequence's
+    serial render makes it (a `Renders` worker's task; each worker builds
+    a scene once)."""
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    from viso_tpu_torch.data import synthetic
+    from viso_tpu_torch.geometry import camera
+    from viso_tpu_torch.tools import mono_cell
+
+    if kind not in _SCENES:
+        _SCENES[kind] = {"headline": lambda: headline_scene(synthetic, camera),
+                         "orbit": mono_cell.orbit, "mono": mono_cell.corridor}[kind]()
+    scene, intr, Rs, ts = _SCENES[kind]
+    Rs, ts = Rs[lo:hi], ts[lo:hi]
+    if kind == "mono":
+        frames = [np.clip(img, 0, 255).astype(np.uint8) for img in
+                  synthetic.render_sequence(scene, intr, Rs, ts, mono_cell.H, mono_cell.W)]
+    else:
+        size = (H, W) if kind == "headline" else (SLAM_H, SLAM_W)
+        frames = render_frames(synthetic, scene, intr, *size, Rs, ts, quantise=kind == "orbit")
+    return frames, Rs, ts
+
+
+class Renders:
+    """Phases 4, 6 and 7's sequences (~180 s of serial rendering on the
+    card's host) rendered by RENDER_WORKERS spawned worker processes, each
+    sequence in RENDER_WORKERS contiguous parts, from before phase 2 on:
+    the card runs phases 2-5 meanwhile, and a phase waits only for what is
+    not rendered yet. The workers run one BLAS / OpenMP thread each, and
+    the pool shuts down once the last sequence is taken (`close`, also on
+    failure)."""
+
+    KINDS = (("headline", N_FRAMES), ("orbit", SLAM_FRAMES), ("mono", MONO_FRAMES))
+
+    def __init__(self):
+        import multiprocessing
+
+        self.t0 = time.perf_counter()
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            RENDER_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+        one = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+        saved = {k: os.environ.get(k) for k in one}
+        os.environ.update(dict.fromkeys(one, "1"))
+        try:
+            self.parts = {}
+            for kind, n in self.KINDS:
+                bounds = np.linspace(0, n, RENDER_WORKERS + 1).astype(int)
+                self.parts[kind] = [self.pool.submit(render_part, kind, int(lo), int(hi))
+                                    for lo, hi in zip(bounds, bounds[1:])]
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    def get(self, kind, label):
+        """A sequence's frames and ground truth (Rs, ts), waiting for its
+        parts; prints how long the phase waited."""
+        t0 = time.perf_counter()
+        parts = [f.result() for f in self.parts.pop(kind)]
+        frames = [x for p in parts for x in p[0]]
+        Rs, ts = (np.concatenate([p[i] for p in parts]) for i in (1, 2))
+        print(f"rendered {len(frames)} {label} by {RENDER_WORKERS} worker processes since "
+              f"the start of the run: waited {time.perf_counter() - t0:.1f} s here, "
+              f"{time.perf_counter() - self.t0:.1f} s after the renders began (host)")
+        if not self.parts:
+            self.close()
+        return frames, Rs, ts
+
+    def close(self):
+        self.pool.shutdown(wait=True, cancel_futures=True)
 
 
 def headline_config(VOConfig):
@@ -634,6 +784,35 @@ def headline_config(VOConfig):
         detect_grid=(6, 12), fast_threshold=20.0, max_disparity=128,
         stats_max_lag=8, kf_max_gap=5, **KITTI_FULL,
     )
+
+
+def headline_against_jax(torch, StereoVO, cfg, frames, Rs, ts, metrics, dev, card):
+    """Phase 4(d). The headline under stats_deterministic on the card: its
+    keyframes equal to the JAX package's CPU run, frames HEADLINE_JAX_FRAMES'
+    camera centres within HEADLINE_JAX_BAND_M of it; every frame's gap
+    printed."""
+    import dataclasses
+
+    vo = StereoVO(dataclasses.replace(cfg, stats_deterministic=True), device=dev)
+    try:
+        for il, ir in frames:
+            vo.process(il, ir)
+        R, t = vo.trajectory()
+        kfs = [i for i, r in enumerate(vo.results) if r.is_keyframe]
+        ate = ate_of(vo, metrics, Rs, ts)
+    finally:
+        vo.close()
+    gaps = np.linalg.norm(metrics.camera_centers(R, t) - np.asarray(JAX_HEADLINE_CENTRES),
+                          axis=-1)
+    held = [float(gaps[i]) for i in HEADLINE_JAX_FRAMES]
+    print(f"4(d) StereoVO headline, stats_deterministic: keyframes {kfs} (JAX package on the "
+          f"CPU {JAX_HEADLINE_KEYFRAMES}), ATE {ate:.6f} m (JAX package {JAX_HEADLINE_ATE_M} m); "
+          f"camera centres from the JAX package's, frames {list(HEADLINE_JAX_FRAMES)}: "
+          f"{[f'{g:.3g}' for g in held]} m (limit {HEADLINE_JAX_BAND_M}) [{card}]")
+    print(f"4(d) later frames' gaps to the JAX package (m, not held): "
+          f"{[float(f'{g:.3g}') for g in gaps[max(HEADLINE_JAX_FRAMES) + 1:]]}")
+    if kfs != JAX_HEADLINE_KEYFRAMES or max(held) > HEADLINE_JAX_BAND_M:
+        raise AssertionError(f"4(d): keyframes {kfs}, frames 1-4 {held} m")
 
 
 def instrument(vo, torch, times):
@@ -719,20 +898,6 @@ def k2_phase(torch, extract, extract_aligned, card):
                              f"K2 launches {launches}")
     return dict(launches=launches, max_abs_err=max(r["max_abs_err"] for r in records),
                 **sweep)
-
-
-def render_orbit(synthetic):
-    """The 500-frame loop orbit (`tools/mono_cell.orbit`, bench.py:604-692)
-    as uint8 stereo pairs, and its ground truth. Phase 9 runs on the left
-    images: the same render as `mono_cell.render_orbit`'s."""
-    from viso_tpu_torch.tools import mono_cell
-
-    t0 = time.perf_counter()
-    scene, intr, Rs, ts = mono_cell.orbit()
-    frames = render_frames(synthetic, scene, intr, SLAM_H, SLAM_W, Rs, ts, quantise=True)
-    print(f"rendered {len(frames)} stereo frames {SLAM_H}x{SLAM_W} (uint8) in "
-          f"{time.perf_counter() - t0:.1f} s (host)")
-    return frames, Rs, ts
 
 
 def dispatch_stream(torch, dev):
@@ -926,17 +1091,6 @@ class K1Sites:
         self.programs.Program._replayed = self.real_replayed
 
 
-def render_mono():
-    """The reference's 500-frame mono corridor (`tools/mono_cell.render`)."""
-    from viso_tpu_torch.tools import mono_cell
-
-    t0 = time.perf_counter()
-    frames, Rs, ts = mono_cell.render(MONO_FRAMES)
-    print(f"rendered {len(frames)} mono frames {mono_cell.H}x{mono_cell.W} (uint8) in "
-          f"{time.perf_counter() - t0:.1f} s (host)")
-    return frames, Rs, ts
-
-
 def mono_phase(torch, extract, frames, Rs, ts, dev, card):
     """Phase 7. MonocularVO (photometric window BA) on the reference's
     500-frame mono cell (`tools/mono_cell.py`, seed 0); returns K1's
@@ -1072,73 +1226,6 @@ def profile_call(torch, fn):
     return len(kernels), sum(e.device_time for e in kernels) / 1e3
 
 
-class LoopRecorder:
-    """Records each loop detection of a MonoSLAM run that gives a
-    candidate: its inputs on the card (query, pose, a copy of the database
-    and its eligible mask) and the PnP hypotheses drawn for it, so that
-    `replay` can run the detection again on any device."""
-
-    def __init__(self, torch, slam):
-        from viso_tpu_torch.slam import loop_closure
-
-        self.slam, self.lc = slam, loop_closure
-        self.calls = []
-        self.real_draw = loop_closure.pnp.draw_hypotheses
-        db, real_detect, drawn = slam.loop_db, slam.loop_db.detect_fused_sim3, []
-
-        def draw(*a, **k):
-            drawn.append(self.real_draw(*a, **k))
-            return drawn[-1]
-
-        def detect(desc_q, kps, kp_mask, pts_q, pts_q_ok, R_cur, t_cur, intr, **kw):
-            drawn.clear()
-            cand = real_detect(desc_q, kps, kp_mask, pts_q, pts_q_ok, R_cur, t_cur, intr, **kw)
-            if cand is not None:
-                self.calls.append(dict(
-                    s_rel=float(cand.s_rel), inliers=int(cand.inliers), idx=drawn[-1],
-                    query=[x.clone() for x in (desc_q, kp_mask, kps, pts_q, pts_q_ok)]
-                    + [torch.as_tensor(np.array(R_cur)), torch.as_tensor(np.array(t_cur))],
-                    db=[x.clone() for x in (db.desc, db.desc_mask, db.points_w_dev,
-                                            db.points_ok_dev)]
-                    + [torch.from_numpy(db._eligible())]))
-            return cand
-
-        db.detect_fused_sim3 = detect
-        loop_closure.pnp.draw_hypotheses = draw
-
-    def close(self):
-        self.lc.pnp.draw_hypotheses = self.real_draw
-
-    def replay(self, rec, device):
-        """The packed 29 floats of a recorded detection on `device`."""
-        p = self.slam.loop_params
-        thresh = (p.pnp_threshold_px / float(self.slam.intr.fx)) ** 2
-        idx = rec["idx"].to(device)
-        return self.lc._detect_fused_sim3_kernel(
-            *(x.to(device) for x in rec["query"] + rec["db"]), self.slam.intr, thresh,
-            p.min_matches, p.min_inliers, lambda mask: idx).cpu().numpy()
-
-    def hold_on_cpu(self, torch, rec, packed):
-        """A detection's packed result from the card, held on the CPU: the
-        inlier count of its PnP pose and the Umeyama s over those inliers."""
-        from viso_tpu_torch.geometry import camera, se3, sim3
-
-        p, intr = self.slam.loop_params, self.slam.intr
-        thresh = (p.pnp_threshold_px / float(intr.fx)) ** 2
-        desc_q, kp_mask, kps, pts_q, pts_q_ok, R_cur, t_cur = (x.cpu() for x in rec["query"])
-        idx = rec["idx"].cpu()
-        _, _, _, ok, pts3d = self.lc._verify(
-            desc_q, kp_mask, kps, *(x.cpu() for x in rec["db"]), intr, thresh,
-            p.min_matches, p.min_inliers, lambda mask: idx)
-        R = torch.from_numpy(packed[4:13].reshape(3, 3).copy())
-        t = torch.from_numpy(packed[13:16].copy())
-        inl = (self.lc.pnp.reprojection_residual(R, t, pts3d, camera.normalize(kps, intr))
-               < thresh) & ok
-        s = sim3.umeyama_masked(se3.transform(R_cur, t_cur, pts_q), se3.transform(R, t, pts3d),
-                                inl & pts_q_ok)[0]
-        return int(inl.sum()), float(s)
-
-
 def sim3_solve_on(torch, slam, device):
     """The run's final graph solved from the raw odometry (scales 1) on
     `device`: node scales and metric camera centres."""
@@ -1163,7 +1250,7 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
     with sites:
         slam = MonoSLAM(mono_cell.slam_config(), mono_cell.slam_loop_params(), device=dev)
     solves = SolveTimer(slam)
-    recorder = LoopRecorder(torch, slam)
+    recorder = diag_loops.LoopRecorder(slam)
     funnel = diag_loops.Funnel(slam)
     dispatch = dispatch_stream(torch, dev)
     try:
@@ -1195,11 +1282,7 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
         s_gt = mono_cell.loop_scale_truth(slam, Rs, ts)
         # The Sim(3) layer on the card against the CPU: each loop detection
         # again, and the final graph's solve.
-        replays = []
-        for rec in recorder.calls:
-            p_dev = recorder.replay(rec, dev)
-            replays.append((rec, p_dev, recorder.hold_on_cpu(torch, rec, p_dev),
-                            recorder.replay(rec, "cpu")))
+        gaps = recorder.holds(dev, MONO_SLAM_HOLD_LOG_TOL, cpu_pnp=True)
         (s_dev, c_dev), (s_cpu, c_cpu) = (sim3_solve_on(torch, slam, d) for d in (dev, "cpu"))
         pools = graph_pools(torch, slam)
     finally:
@@ -1228,13 +1311,6 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
           f"{MONO_SLAM_TRUTH_LOG_BAND} in log of ground truth's ratio (|log| "
           f"{[round(e, 4) for e in s_err]}); node scales reach |log s| {move:.4f} "
           f"(at least {need:.4f})")
-    gaps = []
-    for rec, p_dev, (inl_held, s_held), p_cpu in replays:
-        gaps.append(dict(
-            same_as_run=bool(int(p_dev[3]) == rec["inliers"] and p_dev[16] == rec["s_rel"]),
-            inliers=(int(p_dev[3]), inl_held), s=(float(p_dev[16]), s_held),
-            log_gap=abs(float(np.log(p_dev[16] / s_held))),
-            cpu_pnp=(int(p_cpu[3]), round(float(p_cpu[16]), 6))))
     solve_gap = (float(np.abs(np.log(s_dev / s_cpu)).max()),
                  float(np.linalg.norm(c_dev - c_cpu, axis=-1).max()))
     shown = [(g["same_as_run"], g["inliers"], tuple(round(v, 6) for v in g["s"]),
@@ -1265,9 +1341,7 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
     if near < MONO_SLAM_TRUTH_SHARE * len(loops):
         raise AssertionError(f"only {near} of {len(loops)} loops' s_rel within "
                              f"{MONO_SLAM_TRUTH_LOG_BAND} in log of ground truth's ratio")
-    if len(replays) != len(loops) or not all(
-            g["same_as_run"] and abs(g["inliers"][0] - g["inliers"][1]) <= 1
-            and g["log_gap"] <= MONO_SLAM_HOLD_LOG_TOL for g in gaps):
+    if len(gaps) != len(loops) or not all(g["held"] for g in gaps):
         raise AssertionError(f"loop detections not reproduced on the card or not held on the "
                              f"CPU: {gaps}")
     if max(solve_gap) > MONO_SLAM_SOLVE_TOL:
@@ -2405,22 +2479,17 @@ def dist_slam_phase(torch, orbit, Rs, ts, dev, card):
     """Phase 10(e). The 500-frame loop SLAM cell's configuration
     (`diag_loops.stereo_config()`, `LoopParams(min_inliers=40,
     max_correction_m=4.0)`) with distribute_ba and stats_deterministic on
-    phase 6's orbit: at world size 1 in this process, then over
+    phase 6's orbit's first DIST_CELL_FRAMES frames (`multiprocess_ba.
+    loop_cell`): at world size 1 in this process, then over
     DIST_CELL_RANKS spawned gloo ranks sharing the card
     (`multiprocess_ba.slam_rank`), rank 0 synchronising the whole device
     after every `process()` call while its loop worker runs. Returns K1's
     launches (every run)."""
-    import dataclasses
-
-    from viso_tpu_torch.slam.loop_closure import LoopParams
-    from viso_tpu_torch.tools import diag_loops, multiprocess_ba
+    from viso_tpu_torch.tools import multiprocess_ba
     from viso_tpu_torch.utils import metrics
 
-    cfg = dataclasses.replace(diag_loops.stereo_config(), distribute_ba=True,
-                              stats_deterministic=True)
-    lp = LoopParams(min_inliers=40, max_correction_m=4.0)
-    frames = np.stack([np.stack(pair) for pair in orbit])
-    c_gt = metrics.camera_centers(Rs, ts)
+    frames, cfg, lp = multiprocess_ba.loop_cell(orbit[:DIST_CELL_FRAMES])
+    c_gt = metrics.camera_centers(Rs[:DIST_CELL_FRAMES], ts[:DIST_CELL_FRAMES])
     t0 = time.perf_counter()
     world1 = multiprocess_ba.slam_rank(dev, frames, cfg, lp)
     t1 = time.perf_counter()
@@ -2447,7 +2516,7 @@ def dist_slam_phase(torch, orbit, Rs, ts, dev, card):
               f"from world 1 (limit {DIST_CELL_BAND_M}; raw first 1 mm apart at frame "
               f"{apart[0] if apart.size else None}), K1 launches {r['k1_launches']}, "
               f"{len(r['drained'])} drained captures, hook errors {r['hook_errors']} [{card}]")
-        if not (len(r["c"]) == SLAM_FRAMES and np.isfinite(r["c"]).all() and r["loops"]
+        if not (len(r["c"]) == DIST_CELL_FRAMES and np.isfinite(r["c"]).all() and r["loops"]
                 and not r["hook_errors"] and ate < SLAM_ATE_LIMIT_M and r["k1_launches"] > 0
                 and max(band) <= DIST_CELL_BAND_M):
             bad.append(r["rank"] if r["world"] > 1 else "world 1")
@@ -2970,12 +3039,14 @@ def long_mono_slam_phase(torch, extract, frames, Rs, ts, metrics, dev, card):
     times: past the loop database's capacity and the Sim(3) graph's PCG
     threshold. Returns K1's launches during the run."""
     from viso_tpu_torch.slam.mono_full import MonoSLAM
-    from viso_tpu_torch.tools import mono_cell
+    from viso_tpu_torch.tools import diag_loops, mono_cell
 
     n_frames = LONG_CYCLES * len(frames)
     gt_R, gt_t = (np.concatenate([x] * LONG_CYCLES) for x in (Rs, ts))
     extract.launch.launches = 0
     slam = MonoSLAM(mono_cell.slam_config(), mono_cell.slam_loop_params(), device=dev)
+    recorder = diag_loops.LoopRecorder(slam)
+    funnel = diag_loops.Funnel(slam)
     torch.cuda.reset_peak_memory_stats(dev)
     start_bytes = torch.cuda.memory_allocated(dev)
     dispatch = dispatch_stream(torch, dev)
@@ -3030,8 +3101,27 @@ def long_mono_slam_phase(torch, extract, frames, Rs, ts, metrics, dev, card):
                   f"{LONG_COST_RTOL}; the graph as it went in {gaps['input_rel']:.3e} above "
                   f"the CPU's); held for the last [{card}]")
         check_eviction(torch, slam, rec, card, "15(c)")
+        counts = funnel.counts()
+        t0 = time.perf_counter()
+        holds = recorder.holds(dev, MONO_SLAM_HOLD_LOG_TOL, select=lambda i, r: (
+            r["node"] >= lp.capacity or i % LONG_MONO_HOLD_EVERY == 0))
+        hold_s = time.perf_counter() - t0
     finally:
+        recorder.close()
         slam.close()
+    check_funnel("15(c) MonoSLAM", counts, loops)
+    after_held = [g for g in holds if g["node"] >= lp.capacity]
+    failing = [g for g in holds if not g["held"]]
+    worst = max(holds, key=lambda g: g["log_gap"], default=None)
+    print(f"15(c) loop detections again on the card and their PnP pose held on the CPU: "
+          f"{len(holds)} of {len(recorder.calls)} detections ({len(after_held)} after the "
+          f"wrap, every one; before it every {LONG_MONO_HOLD_EVERY}-th), "
+          f"{len(holds) - len(failing)} held (replay equal to the run, inliers within 1, |log s_rel| within "
+          f"{MONO_SLAM_HOLD_LOG_TOL}); largest inlier gap "
+          f"{max((abs(g['inliers'][0] - g['inliers'][1]) for g in holds), default=0)}, largest "
+          f"|log| gap {worst['log_gap'] if worst else 0:.3g}; {hold_s:.1f} s [{card}]")
+    if failing:
+        print(f"15(c) detections not held: {failing[:8]}")
 
     print(f"15(c) scale-aligned keyframe ATE: {ate:.6f} m after the Sim(3) correction (limit "
           f"{LONG_MONO_ATE_LIMIT_M} m, at most {LONG_MONO_OVER_RAW_M} m above raw), "
@@ -3054,6 +3144,10 @@ def long_mono_slam_phase(torch, extract, frames, Rs, ts, metrics, dev, card):
         "corrected keyframe ATE": ate < LONG_MONO_ATE_LIMIT_M
         and ate <= ate_raw + LONG_MONO_OVER_RAW_M,
         "K1 launched": launches > 0,
+        "every detection recorded": len(recorder.calls) == counts["scale_gate"] >= len(loops),
+        "every detection after the wrap held": bool(after_held) and len(after_held) == sum(
+            r["node"] >= lp.capacity for r in recorder.calls),
+        "each detection held on the CPU": not failing,
     }
     failed = [k for k, ok in failed.items() if not ok]
     if errors:
@@ -3446,9 +3540,17 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    renders = Renders()
+    try:
+        return smoke(torch, renders)
+    finally:
+        renders.close()
+
+
+def smoke(torch, renders) -> int:
+    """Phases 1-17, `main` having checked for the card and the checkout."""
     from viso_tpu_torch import _cuda
-    from viso_tpu_torch.data import synthetic
-    from viso_tpu_torch.geometry import camera, extract, extract_aligned
+    from viso_tpu_torch.geometry import extract, extract_aligned
     from viso_tpu_torch.slam.engine import StereoVO, VOConfig
     from viso_tpu_torch.tools import bench_extract, bench_k1
     from viso_tpu_torch.utils import metrics
@@ -3485,9 +3587,7 @@ def main() -> int:
 
     # Phase 4: StereoVO on the headline sequence.
     t_phase = t0 = time.perf_counter()
-    frames, Rs, ts = render_headline(synthetic, camera)
-    print(f"rendered {len(frames)} stereo frames {H}x{W} in "
-          f"{time.perf_counter() - t0:.1f} s (host)")
+    frames, Rs, ts = renders.get("headline", f"stereo frames {H}x{W}")
     cfg = headline_config(VOConfig)
 
     # 4a: instrumented run -- per-program ms and synchronising calls.
@@ -3573,6 +3673,7 @@ def main() -> int:
         raise AssertionError("the main path never launched the extraction kernel")
     if not (ate < ATE_LIMIT_M and ate_a < ATE_LIMIT_M):
         raise AssertionError(f"ATE {ate:.4f} / {ate_a:.4f} m over {ATE_LIMIT_M} m")
+    headline_against_jax(torch, StereoVO, cfg, frames, Rs, ts, metrics, dev, card)
 
     print(f"phase 4 wall {time.perf_counter() - t_phase:.1f} s")
 
@@ -3583,14 +3684,14 @@ def main() -> int:
 
     # Phase 6: StereoSLAM on the 500-frame loop cell.
     t0 = time.perf_counter()
-    orbit, orbit_Rs, orbit_ts = render_orbit(synthetic)
+    orbit, orbit_Rs, orbit_ts = renders.get("orbit", f"stereo frames {SLAM_H}x{SLAM_W} (uint8)")
     slam_k1 = slam_phase(torch, extract, extract_aligned, orbit, orbit_Rs, orbit_ts, metrics,
                          dev, card)
     print(f"phase 6 wall {time.perf_counter() - t0:.1f} s")
 
     # Phase 7: MonocularVO on the 500-frame mono cell.
     t0 = time.perf_counter()
-    mono_frames, mono_Rs, mono_ts = render_mono()
+    mono_frames, mono_Rs, mono_ts = renders.get("mono", f"mono frames {SLAM_H}x{SLAM_W} (uint8)")
     mono_k1 = mono_phase(torch, extract, mono_frames, mono_Rs, mono_ts, dev, card)
     print(f"phase 7 wall {time.perf_counter() - t0:.1f} s")
 
@@ -3605,15 +3706,20 @@ def main() -> int:
                                    dev, card)
     print(f"phase 9 wall {time.perf_counter() - t0:.1f} s")
 
-    # Phase 10: the distributed window BA, then SLAM over ranks.
+    # Phase 10: the distributed window BA, then SLAM over ranks. (f)'s CLI
+    # ranks (spawned processes) run beside (e): both are stats_deterministic,
+    # so neither's results depend on the other's timing.
     t0 = time.perf_counter()
     dist_k1 = dist_phase(torch, extract, dev, card)
     t1 = time.perf_counter()
-    dist_k1 += dist_slam_phase(torch, orbit, orbit_Rs, orbit_ts, dev, card)
-    t2 = time.perf_counter()
-    dist_k1 += dist_cli_phase(dev, card)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cli = pool.submit(lambda: (dist_cli_phase(dev, card), time.perf_counter() - t1))
+        dist_k1 += dist_slam_phase(torch, orbit, orbit_Rs, orbit_ts, dev, card)
+        t2 = time.perf_counter()
+        cli_k1, cli_s = cli.result()
+    dist_k1 += cli_k1
     print(f"phase 10 wall {time.perf_counter() - t0:.1f} s ((a)-(d) {t1 - t0:.1f} s, (e) "
-          f"{t2 - t1:.1f} s, (f) {time.perf_counter() - t2:.1f} s)")
+          f"{t2 - t1:.1f} s, (f) {cli_s:.1f} s beside (e))")
 
     # Phase 11: the stats-delay scenario and the diagnostic and profiling tools.
     t0 = time.perf_counter()

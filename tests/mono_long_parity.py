@@ -16,7 +16,9 @@ Each run goes through `tests/mono_slam_cell_parity.run`: the port replays
 the JAX package's draws of the seed. Prints nodes, loops (and those after
 the wrap: from node `capacity` on), re-inits, the pose-graph solves the
 health gate accepted and rejected, the node scales' range, the
-scale-aligned keyframe ATE corrected and raw, then one JSON line. About
+scale-aligned keyframe ATE corrected and raw, the loop funnel
+(`diag_loops.Funnel`, as chip_smoke phase 15(c) prints it), then one
+JSON line. About
 20-40 min a package on 8 cores; the JAX package's result moves with XLA's
 CPU threading, so give the core count beside a reading.
 """
@@ -51,7 +53,7 @@ def main(argv=None) -> int:
     imgs, Rs, ts = mono_cell.render_orbit()
     imgs = imgs * args.cycles
     Rs, ts = (np.concatenate([x] * args.cycles) for x in (Rs, ts))
-    r = run(args.package, args.seed, imgs, Rs, ts)
+    r = run(args.package, args.seed, imgs, Rs, ts, funnel=True)
     after = [lo for lo in r["loops"] if lo[0] >= CAPACITY]
     r.update(frames=len(imgs), cycles=args.cycles,
              loops_after_wrap=len(after),
@@ -63,6 +65,7 @@ def main(argv=None) -> int:
           f"{r['solves_rejected']}; node scales {r['s_min']:.4f}-{r['s_max']:.4f}; "
           f"scale-aligned keyframe ATE {r['ate_m']:.6f} m corrected, {r['ate_raw_m']:.6f} m "
           f"raw; {r['hook_errors']} hook errors, {r['seconds']:.1f} s [cpu]", flush=True)
+    print("loop funnel: " + ", ".join(f"{k} {v}" for k, v in r["funnel"].items()), flush=True)
     print(json.dumps(r))
     return 0
 

@@ -92,11 +92,11 @@ def loop_fits(rec, intr, params):
         points=int(m.sum()))
 
 
-def run(package: str, seed: int, imgs, Rs, ts, fits=False):
+def run(package: str, seed: int, imgs, Rs, ts, fits=False, funnel=False):
     import pytest
     from test_torch_mono_slam import record_detections
 
-    from viso_tpu_torch.tools import mono_cell
+    from viso_tpu_torch.tools import diag_loops, mono_cell
 
     mp = pytest.MonkeyPatch()
     if package == "jax":
@@ -124,6 +124,7 @@ def run(package: str, seed: int, imgs, Rs, ts, fits=False):
                                    device="cpu")
         key_of = (lambda: replay.key)
     calls = record_detections(slam, key_of) if fits else []
+    counter = diag_loops.Funnel(slam) if funnel else None
     t0 = time.perf_counter()
     try:
         for img in imgs:
@@ -145,6 +146,7 @@ def run(package: str, seed: int, imgs, Rs, ts, fits=False):
                     solves_rejected=slam.solves_rejected,
                     nodes=len(slam.pg_s), reinits=int(slam.num_reinits),
                     hook_errors=len(slam.hook_errors),
+                    funnel=counter.counts() if funnel else None,
                     seconds=time.perf_counter() - t0)
     finally:
         mp.undo()

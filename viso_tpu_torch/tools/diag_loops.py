@@ -48,6 +48,10 @@ from viso_tpu_torch.tools import mono_cell, target
 
 H, W = mono_cell.H, mono_cell.W
 FRAMES = mono_cell.FRAMES
+# A loop detection held on the CPU (`LoopRecorder.holds`): chip_smoke
+# phase 9's bound on |log s_rel| between the device's result and the CPU's
+# (MONO_SLAM_HOLD_LOG_TOL).
+HOLD_LOG_TOL = 1e-3
 STAGES = ("keyframes", "queries", "eligible", "matches", "points_3d", "pnp_inliers",
           "drift_gate", "scale_gate", "loops")
 
@@ -125,6 +129,131 @@ class Funnel:
                "loops": len(self.slam.loops)}
         if not self.mono:
             del out["scale_gate"]
+        return out
+
+
+class LoopRecorder:
+    """Records each loop detection of a MonoSLAM run that gives a
+    candidate, so that it can be run again on any device and held on the
+    CPU: its query and pose, the database's eligible mask and the PnP
+    hypotheses drawn for it (cloned where the engine made them), and how
+    many inserts the database had taken. Each `LoopDatabase.add` logs the
+    rows it wrote (a copy of one slot's descriptors and landmarks, not of
+    the whole database), so a detection's database is rebuilt from the
+    log. Installs itself on `slam.loop_db` (`add`,
+    `detect_fused_sim3`) and on `loop_closure.pnp.draw_hypotheses`
+    (process-wide) at construction; `close()` gives the draw back."""
+
+    def __init__(self, slam):
+        import torch
+
+        from viso_tpu_torch.slam import loop_closure
+
+        self.slam, self.lc = slam, loop_closure
+        self.calls, self.inserts = [], []
+        self.real_draw = loop_closure.pnp.draw_hypotheses
+        db, drawn = slam.loop_db, []
+        real_add, real_detect = db.add, db.detect_fused_sim3
+        self.rows = (db.desc, db.desc_mask, db.points_w_dev, db.points_ok_dev)
+
+        def draw(*a, **k):
+            drawn.append(self.real_draw(*a, **k))
+            return drawn[-1]
+
+        def add(*a, **kw):
+            slot = real_add(*a, **kw)
+            self.inserts.append((slot, [x[slot].clone() for x in self.rows]))
+            return slot
+
+        def detect(desc_q, kps, kp_mask, pts_q, pts_q_ok, R_cur, t_cur, intr, **kw):
+            drawn.clear()
+            cand = real_detect(desc_q, kps, kp_mask, pts_q, pts_q_ok, R_cur, t_cur, intr, **kw)
+            if cand is not None:
+                self.calls.append(dict(
+                    node=len(slam.pg_raw_R) - 1, s_rel=float(cand.s_rel),
+                    inliers=int(cand.inliers), idx=drawn[-1], inserts=len(self.inserts),
+                    query=[x.clone() for x in (desc_q, kp_mask, kps, pts_q, pts_q_ok)]
+                    + [torch.as_tensor(np.array(R_cur)), torch.as_tensor(np.array(t_cur))],
+                    eligible=torch.from_numpy(db._eligible())))
+            return cand
+
+        db.add, db.detect_fused_sim3 = add, detect
+        loop_closure.pnp.draw_hypotheses = draw
+
+    def close(self):
+        self.lc.pnp.draw_hypotheses = self.real_draw
+
+    def databases(self, device):
+        """Each recorded call with its database on `device` as the
+        detection read it (rebuilt from the insert log, in call order; the
+        tensors are reused from one call to the next)."""
+        import torch
+
+        rows = [torch.zeros_like(x, device=device) for x in self.rows]
+        done = 0
+        for rec in self.calls:
+            for slot, written in self.inserts[done:rec["inserts"]]:
+                for dst, x in zip(rows, written):
+                    dst[slot].copy_(x)
+            done = rec["inserts"]
+            yield rec, rows + [rec["eligible"].to(device)]
+
+    def replay(self, rec, db, device):
+        """The packed 29 floats of a recorded detection on `device`, given
+        its database there (`databases`)."""
+        p = self.slam.loop_params
+        thresh = (p.pnp_threshold_px / float(self.slam.intr.fx)) ** 2
+        idx = rec["idx"].to(device)
+        return self.lc._detect_fused_sim3_kernel(
+            *(x.to(device) for x in rec["query"]), *db, self.slam.intr, thresh,
+            p.min_matches, p.min_inliers, lambda mask: idx).cpu().numpy()
+
+    def hold_on_cpu(self, rec, db, packed):
+        """A detection's packed result (from any device) held on the CPU,
+        given its database on the CPU: the inlier count of its PnP pose
+        over the CPU's own matches and the Umeyama s over those inliers."""
+        import torch
+
+        from viso_tpu_torch.geometry import camera, se3, sim3
+
+        p, intr = self.slam.loop_params, self.slam.intr
+        thresh = (p.pnp_threshold_px / float(intr.fx)) ** 2
+        desc_q, kp_mask, kps, pts_q, pts_q_ok, R_cur, t_cur = (x.cpu() for x in rec["query"])
+        _, _, ok, pts3d, x = self.lc._match_stage(
+            desc_q, kp_mask, kps, *db, intr=intr, min_matches=p.min_matches,
+            min_inliers=p.min_inliers)
+        R = torch.from_numpy(packed[4:13].reshape(3, 3).copy())
+        t = torch.from_numpy(packed[13:16].copy())
+        inl = (self.lc.pnp.reprojection_residual(R, t, pts3d, x) < thresh) & ok
+        s = sim3.umeyama_masked(se3.transform(R_cur, t_cur, pts_q), se3.transform(R, t, pts3d),
+                                inl & pts_q_ok)[0]
+        return int(inl.sum()), float(s)
+
+    def holds(self, device, hold_log_tol, select=None, cpu_pnp=False):
+        """The recorded detections that `select(index, rec)` picks (every
+        one by default), each run again on `device` and held on the CPU:
+        one dict each with the node, whether the replay equals the run
+        (inliers and s_rel bit for bit), the inliers and s_rel of the
+        replay and of the hold, their |log| gap, and `held` (the replay
+        equal to the run, the hold within 1 inlier and `hold_log_tol`);
+        with `cpu_pnp`, also the CPU's own detection on the same inputs and
+        hypotheses (inliers, s_rel)."""
+        out = []
+        pairs = zip(self.databases(device), self.databases("cpu"))
+        for i, ((rec, db), (_, db_cpu)) in enumerate(pairs):
+            if select is not None and not select(i, rec):
+                continue
+            packed = self.replay(rec, db, device)
+            inl, s = self.hold_on_cpu(rec, db_cpu, packed)
+            same = bool(int(packed[3]) == rec["inliers"] and packed[16] == rec["s_rel"])
+            log_gap = abs(float(np.log(packed[16] / s)))
+            g = dict(node=rec["node"], same_as_run=same, inliers=(int(packed[3]), inl),
+                     s=(float(packed[16]), s), log_gap=log_gap,
+                     held=same and abs(int(packed[3]) - inl) <= 1 and log_gap <= hold_log_tol)
+            if cpu_pnp:
+                p_cpu = self.replay(rec, db_cpu, "cpu")
+                g["cpu_pnp"] = (int(p_cpu[3]), round(float(p_cpu[16]), 6))
+            out.append(g)
         return out
 
 

@@ -1,8 +1,8 @@
 """The reference's monocular cells run once per RANSAC seed: the spread
 of their accuracy.
 
-    python -m viso_tpu_torch.tools.mono_cell [--slam] [--seeds 0 1 2]
-        [--frames 500] [--device cuda|cpu]
+    python -m viso_tpu_torch.tools.mono_cell [--slam [--cycles N] [--hold]]
+        [--seeds 0 1 2] [--frames 500] [--device cuda|cpu]
 
 Without `--slam`, the monocular VO cell (`bench.py:329-449`, BASELINE
 config 1): 184x616, half-KITTI intrinsics, 256 features, 1024 landmarks,
@@ -22,7 +22,12 @@ half=5.5)`, `orbit_trajectory(500, radius=2.5, total_angle=4 pi)`,
 uint8). Prints per seed the scale-aligned keyframe ATE after the Sim(3)
 correction and of the raw odometry nodes, the loops (from, to, inliers,
 s_rel, and the s_rel that ground truth implies: `loop_scale_truth`), the
-range of node scales, keyframes, nodes and re-inits.
+range of node scales, keyframes, nodes and re-inits. `--cycles N` runs
+the frames N times over (6: chip_smoke phase 15(c)'s 3,000 frames);
+`--hold` installs `diag_loops.Funnel` and `diag_loops.LoopRecorder`,
+prints the funnel and holds every loop detection: run again on the
+device (equal to the run) and held on the CPU given its PnP pose (within
+1 inlier and `diag_loops.HOLD_LOG_TOL` in |log s_rel|, phase 9's bounds).
 
 A seed is `VOConfig.seed`, the seed of the engine's generator (the
 two-view bootstrap's RANSAC hypotheses) and, plus one, of the loop
@@ -128,14 +133,23 @@ def loop_scale_truth(slam, Rs, ts, half_window: int = 3):
     return [float(local(lo["to"]) / local(lo["from"])) for lo in slam.loops]
 
 
-def render(frames: int = FRAMES):
-    """The cell's uint8 frames and ground-truth poses (Rs, ts)."""
+def corridor():
+    """The mono VO cell's scene, intrinsics and 500 ground-truth poses
+    (Rs, ts) (bench.py:329-449)."""
     from viso_tpu_torch.data import synthetic
     from viso_tpu_torch.geometry import camera
 
     scene = synthetic.corridor_scene(np.random.default_rng(5), tex_size=1024, far_z=90.0)
     intr = camera.Intrinsics.create(**KITTI_HALF)
     Rs, ts = synthetic.forward_trajectory(FRAMES, step=0.15, yaw_rate=0.002)
+    return scene, intr, Rs, ts
+
+
+def render(frames: int = FRAMES):
+    """The cell's uint8 frames and ground-truth poses (Rs, ts)."""
+    from viso_tpu_torch.data import synthetic
+
+    scene, intr, Rs, ts = corridor()
     Rs, ts = Rs[:frames], ts[:frames]
     imgs = [np.clip(img, 0, 255).astype(np.uint8)
             for img in synthetic.render_sequence(scene, intr, Rs, ts, H, W)]
@@ -182,11 +196,17 @@ def run_seed(imgs, Rs, ts, seed: int, device):
     return out
 
 
-def run_slam_seed(imgs, Rs, ts, seed: int, device):
-    """One MonoSLAM run over the orbit frames: its accuracy and loops."""
+def run_slam_seed(imgs, Rs, ts, seed: int, device, hold: bool = False):
+    """One MonoSLAM run over the orbit frames: its accuracy and loops; with
+    `hold`, also its loop funnel and every loop detection run again on
+    `device` and held on the CPU (`diag_loops.LoopRecorder.holds`, phase
+    9's bounds)."""
     from viso_tpu_torch.slam.mono_full import MonoSLAM
+    from viso_tpu_torch.tools import diag_loops
 
     slam = MonoSLAM(slam_config(seed), slam_loop_params(), device=device)
+    recorder = diag_loops.LoopRecorder(slam) if hold else None
+    funnel = diag_loops.Funnel(slam) if hold else None
     try:
         for img in imgs:
             slam.process(img)
@@ -194,14 +214,28 @@ def run_slam_seed(imgs, Rs, ts, seed: int, device):
         nan = float("nan")
         ate, ate_raw = slam_accuracy(slam, Rs, ts) if slam.pg_s else (nan, nan)
         s_gt = loop_scale_truth(slam, Rs, ts)
-        return dict(seed=seed, ate_m=ate, ate_raw_m=ate_raw,
-                    loops=[(lo["from"], lo["to"], lo["inliers"], lo["s_rel"], g)
-                           for lo, g in zip(slam.loops, s_gt)],
-                    s_min=min(slam.pg_s, default=nan), s_max=max(slam.pg_s, default=nan),
-                    keyframes=sum(r.is_keyframe for r in slam.results),
-                    nodes=len(slam.pg_s), reinits=slam.num_reinits,
-                    hook_errors=len(slam.hook_errors))
+        out = dict(seed=seed, ate_m=ate, ate_raw_m=ate_raw,
+                   loops=[(lo["from"], lo["to"], lo["inliers"], lo["s_rel"], g)
+                          for lo, g in zip(slam.loops, s_gt)],
+                   s_min=min(slam.pg_s, default=nan), s_max=max(slam.pg_s, default=nan),
+                   keyframes=sum(r.is_keyframe for r in slam.results),
+                   nodes=len(slam.pg_s), reinits=slam.num_reinits,
+                   hook_errors=len(slam.hook_errors))
+        if hold:
+            t0 = time.perf_counter()
+            holds = recorder.holds(device, diag_loops.HOLD_LOG_TOL)
+            cap = slam.loop_params.capacity
+            out.update(funnel=funnel.counts(), held=sum(g["held"] for g in holds),
+                       holds=len(holds), holds_after_wrap=sum(g["node"] >= cap for g in holds),
+                       hold_max_inlier_gap=max(
+                           (abs(g["inliers"][0] - g["inliers"][1]) for g in holds), default=0),
+                       hold_max_log_gap=max((g["log_gap"] for g in holds), default=0.0),
+                       not_held=[g for g in holds if not g["held"]],
+                       hold_s=time.perf_counter() - t0)
+        return out
     finally:
+        if recorder is not None:
+            recorder.close()
         slam.close()
 
 
@@ -211,18 +245,29 @@ def main(argv=None) -> int:
                     help="the mono SLAM cell (MonoSLAM on the loop orbit)")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3, 4, 5])
     ap.add_argument("--frames", type=int, default=FRAMES)
+    ap.add_argument("--cycles", type=int, default=1,
+                    help="with --slam: the frames run this many times over (6: phase 15(c))")
+    ap.add_argument("--hold", action="store_true",
+                    help="with --slam: the loop funnel, and every loop detection run again "
+                         "and held on the CPU")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if (args.cycles != 1 or args.hold) and not args.slam:
+        ap.error("--cycles and --hold need --slam")
     device, where = target("mono_cell", args.device)
+    from viso_tpu_torch.tools import diag_loops
+
     t0 = time.perf_counter()
     imgs, Rs, ts = (render_orbit if args.slam else render)(args.frames)
     print(f"rendered {len(imgs)} frames {H}x{W} (uint8) in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    imgs = imgs * args.cycles
+    Rs, ts = (np.concatenate([x] * args.cycles) for x in (Rs, ts))
     runs = []
     for seed in args.seeds:
         t0 = time.perf_counter()
         if args.slam:
-            r = run_slam_seed(imgs, Rs, ts, seed, device)
+            r = run_slam_seed(imgs, Rs, ts, seed, device, hold=args.hold)
             print(f"seed {seed}: scale-aligned keyframe ATE {r['ate_m']:.6f} m after the "
                   f"Sim(3) correction, {r['ate_raw_m']:.6f} m raw; {len(r['loops'])} loops "
                   f"(from, to, inliers, s_rel, s_rel from ground truth) "
@@ -231,6 +276,13 @@ def main(argv=None) -> int:
                   f"{r['s_min']:.4f}-{r['s_max']:.4f}; {r['keyframes']} keyframes, "
                   f"{r['nodes']} nodes, {r['reinits']} re-inits, {r['hook_errors']} hook "
                   f"errors, {time.perf_counter() - t0:.1f} s [{where}]", flush=True)
+            if args.hold:
+                print(f"seed {seed}: loop funnel {r['funnel']}; {r['held']} of {r['holds']} "
+                      f"detections held ({r['holds_after_wrap']} after the database's wrap): "
+                      f"the replay on {where} equal to the run, the CPU within 1 inlier "
+                      f"(largest gap {r['hold_max_inlier_gap']}) and |log s_rel| "
+                      f"{diag_loops.HOLD_LOG_TOL} (largest {r['hold_max_log_gap']:.3g}); "
+                      f"{r['hold_s']:.1f} s [{where}]", flush=True)
         else:
             r = run_seed(imgs, Rs, ts, seed, device)
             print(f"seed {seed}: scale-aligned ATE {r['ate_m']:.6f} m, scale drift "
@@ -240,7 +292,7 @@ def main(argv=None) -> int:
                   flush=True)
         runs.append(r)
     print(json.dumps({"device": where, "cell": "mono_slam" if args.slam else "mono",
-                      "frames": len(imgs), "runs": runs}))
+                      "frames": len(imgs), "cycles": args.cycles, "runs": runs}))
     return 0
 
 

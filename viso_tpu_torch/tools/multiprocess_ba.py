@@ -1,8 +1,8 @@
 """Multi-process check of the distributed window BA (port of
 `tools/multiprocess_ba.py`).
 
-    python -m viso_tpu_torch.tools.multiprocess_ba [--procs 2] [--engine | --slam]
-        [--device cuda|cpu]
+    python -m viso_tpu_torch.tools.multiprocess_ba [--procs 2] [--engine | --slam
+        [--cell FRAMES]] [--device cuda|cpu]
 
 Starts N ranks with `torch.multiprocessing` (spawn) that form a group
 over a `file://` store (no port), each on `--device`: NCCL with one card
@@ -25,7 +25,16 @@ rank on the first card (`bench_dist_ba.backend_for`), in three modes:
              rank, under the dryrun's assertions (>= 3 nodes and
              keyframes, a finite pose moved > 0.2 m forward, the window
              BA on the group, no hook error); every rank's raw and
-             corrected trajectories equal to rank 0's bit for bit.
+             corrected trajectories equal to rank 0's bit for bit;
+             with `--cell FRAMES`, chip_smoke phase 10(e)'s loop cell in
+             its place: the 500-frame loop orbit's first FRAMES uint8
+             stereo pairs (184x616, `diag_loops.render_stereo`, rendered
+             once in the parent), `diag_loops.stereo_config()` with
+             `distribute_ba` and `stats_deterministic`, `LoopParams(
+             min_inliers=40, max_correction_m=4.0)`: per rank its loops,
+             nodes and ATE (no scale alignment), at least one loop, no
+             hook error, and the ranks' raw and corrected trajectories
+             equal bit for bit.
 
 `launch` is the spawner the tests, `bench_dist_ba` and chip_smoke.py use:
 each rank sets one CPU thread, joins the group with a 60 s timeout, and
@@ -352,6 +361,21 @@ def slam_ranks_gap(ranks):
             max(float(np.abs(r["c"] - ranks[0]["c"]).max()) for r in ranks))
 
 
+def loop_cell(pairs):
+    """chip_smoke phase 10(e)'s loop cell for `slam_rank` on `pairs` (the
+    loop orbit's first uint8 stereo pairs): (frames, config, loop
+    parameters)."""
+    import dataclasses
+
+    from viso_tpu_torch.slam.loop_closure import LoopParams
+    from viso_tpu_torch.tools import diag_loops
+
+    cfg = dataclasses.replace(diag_loops.stereo_config(), distribute_ba=True,
+                              stats_deterministic=True)
+    return (np.stack([np.stack(p) for p in pairs]), cfg,
+            LoopParams(min_inliers=40, max_correction_m=4.0))
+
+
 def cli_rank(device, argv):
     """One rank of the CLI, `run.main(argv)`, on `device` in the world
     `launch` made (rank r > 0 writes into `--out-dir/rank<r>`), its
@@ -387,24 +411,42 @@ def main(argv=None) -> int:
                       help="run the StereoVO engine with distribute_ba")
     mode.add_argument("--slam", action="store_true",
                       help="run the mesh dryrun's StereoSLAM with distribute_ba")
+    ap.add_argument("--cell", type=int, default=0, metavar="FRAMES",
+                    help="with --slam: the loop cell over the orbit's first FRAMES frames")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.cell and not args.slam:
+        ap.error("--cell needs --slam")
     from viso_tpu_torch.tools.bench_dist_ba import backend_for
 
     fn = slam_rank if args.slam else engine_rank if args.engine else ba_rank
     backend = backend_for(args.procs, args.device)
-    results = launch(fn, args.procs, device=args.device, backend=backend,
-                     timeout=300.0 if args.slam else 120.0)
+    fn_args = ()
+    if args.cell:
+        from viso_tpu_torch.tools import diag_loops
+        from viso_tpu_torch.utils import metrics
+
+        pairs, Rs, ts = diag_loops.render_stereo(args.cell)
+        fn_args, c_gt = loop_cell(pairs), metrics.camera_centers(Rs, ts)
+    results = launch(fn, args.procs, args=fn_args, device=args.device, backend=backend,
+                     timeout=900.0 if args.cell else 300.0 if args.slam else 120.0)
     print(f"{args.procs} ranks over {backend}", flush=True)
     ok = True
+    if args.cell:
+        for r in results:
+            ate = metrics.ate_rmse(r["c"], c_gt, align=True, with_scale=False)
+            print(f"[rank {r['rank']}] loop cell, {args.cell} frames: {r['nodes']} nodes, "
+                  f"{len(r['loops'])} loops {r['loops']}, ATE {ate:.6f} m (no scale "
+                  f"alignment), solve={r['ba_solve']}, K1={r['k1_launches']}, "
+                  f"hook_errors={r['hook_errors']}", flush=True)
     if args.slam:
         raw_equal, corrected_equal, gap = slam_ranks_gap(results)
         print(f"SLAM ranks: raw trajectories equal {raw_equal}, corrected equal "
               f"{corrected_equal} (largest gap to rank 0's {gap:.3g} m)", flush=True)
-        ok = raw_equal and corrected_equal
+        ok &= raw_equal and corrected_equal
     for r in results:
         if args.slam:
-            good = slam_ok(r)
+            good = (bool(r["loops"]) and not r["hook_errors"]) if args.cell else slam_ok(r)
             print(f"[rank {r['rank']}] SLAM world={r['world']} nodes={r['nodes']} "
                   f"keyframes={r['keyframes']} window_bas={r['window_bas']} "
                   f"solve={r['ba_solve']} t={r['t_fin'].tolist()} loops={r['loops']} "
