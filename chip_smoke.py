@@ -30,8 +30,8 @@ the host by RENDER_WORKERS worker processes from the start of the run
   4. StereoVO at the bench-headline configuration (376x1240, KITTI
      intrinsics, 44-frame rng-42 corridor), its programs captured as CUDA
      graphs and replayed (`viso_tpu_torch/slam/programs.py`, as in every
-     engine run below): an instrumented run for per-program times (each
-     replay between CUDA events) and the synchronising-call count, one more tracked
+     engine run below): per-program times from the engine's frame recorder
+     (each replay between CUDA events) and the synchronising-call count, one more tracked
      frame under torch.profiler (no copy of the keyframe stack), then a
      clean run for frames/s over 32 frames after a 12-frame warmup. K1's
      launch counter must rise during the run, and the ATE against ground
@@ -815,28 +815,6 @@ def headline_against_jax(torch, StereoVO, cfg, frames, Rs, ts, metrics, dev, car
         raise AssertionError(f"4(d): keyframes {kfs}, frames 1-4 {held} m")
 
 
-def instrument(vo, torch, times):
-    """Wrap each program as the engine runs it (the replay of its captured
-    graph) with CUDA events (no host sync)."""
-    real = vo._program
-
-    def program(name):
-        prog = real(name)
-
-        def timed(*a):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            out = prog(*a)
-            e.record()
-            times.setdefault(name, []).append((s, e))
-            return out
-
-        return timed
-
-    vo._program = program
-
-
 def profile_frame(torch, vo, frame, stack_bytes):
     """One tracked frame under torch.profiler: (device kernel ms, kernel
     count, K1 kernels, the bytes of every aten::cat that allocates at
@@ -1079,7 +1057,7 @@ class K1Sites:
         def replayed(prog, _real=self.real_replayed):
             _real(prog)
             if prog.counts.get(key):
-                site = K1_SITES.get(prog.name, "other")
+                site = K1_SITES.get(getattr(prog.fn, "__name__", prog.name), "other")
                 counts[site] = counts.get(site, 0) + prog.counts[key]
 
         self.extract._run = run
@@ -3554,6 +3532,8 @@ def smoke(torch, renders) -> int:
     from viso_tpu_torch.slam.engine import StereoVO, VOConfig
     from viso_tpu_torch.tools import bench_extract, bench_k1
     from viso_tpu_torch.utils import metrics
+    from viso_tpu_torch.utils import profiling
+    from viso_tpu_torch.utils.profiling import RECORDER
     t_start = time.perf_counter()
 
     # Phase 1: the card.
@@ -3590,39 +3570,42 @@ def smoke(torch, renders) -> int:
     frames, Rs, ts = renders.get("headline", f"stereo frames {H}x{W}")
     cfg = headline_config(VOConfig)
 
-    # 4a: instrumented run -- per-program ms and synchronising calls.
-    times: dict = {}
-    vo = StereoVO(cfg, device=dev)
-    instrument(vo, torch, times)
-    for il, ir in frames[:WARMUP]:
-        vo.process(il, ir)
-    timed = [vo.to_device(il, ir) for il, ir in frames[WARMUP:]]
-    torch.cuda.synchronize()
-    for v in times.values():
-        v.clear()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for il, ir in timed:
-                vo.process(il, ir)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
+    # 4a: per-program ms from the engine's frame recorder (each replay
+    # between its CUDA events, every frame timed) and synchronising calls.
+    every, profiling.EVENT_EVERY = profiling.EVENT_EVERY, 1
+    try:
+        vo = StereoVO(cfg, device=dev)
+        for il, ir in frames[:WARMUP]:
+            vo.process(il, ir)
+        timed = [vo.to_device(il, ir) for il, ir in frames[WARMUP:]]
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for il, ir in timed:
+                    vo.process(il, ir)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    finally:
+        profiling.EVENT_EVERY = every
     n_sync = sum(1 for w in caught if "synchroniz" in str(w.message).lower())
     ate_a = ate_of(vo, metrics, Rs, ts)
-    prog_ms = {
-        name: sum(s.elapsed_time(e) for s, e in v) / len(v)
-        for name, v in times.items() if v
-    }
-    calls = {name: len(v) for name, v in times.items()}
+    recorded = RECORDER.frames(WARMUP, len(timed), engine=vo.engine_id)
+    times: dict = {}
+    for f in recorded:
+        for name, ms in f.programs or ():
+            times.setdefault(name, []).append(ms)
     for name in ("track", "stereo_kf", "ba", "templates"):
-        if name not in prog_ms:
+        if not times.get(name):
             raise AssertionError(f"program {name} never ran in the timed frames")
-        print(f"program {name}: mean {prog_ms[name]:.3f} ms over {calls[name]} calls "
-              f"(CUDA events, stream time) [{card}]")
+        v = times[name]
+        print(f"program {name}: mean {sum(v) / len(v):.3f} ms over {len(v)} calls "
+              f"(the recorder's CUDA events, stream time) [{card}]")
     print(f"synchronising calls over {len(timed)} timed frames "
-          f"(set_sync_debug_mode warn): {n_sync} [{card}]")
+          f"(set_sync_debug_mode warn): {n_sync}; the recorder's host_syncs: "
+          f"{sum(f.counters.get('host_syncs', 0) for f in recorded)} [{card}]")
 
     # 4b: one more tracked frame under torch.profiler (the last frame
     # again): no copy of the keyframe stack (8 images at level 1 or more).
@@ -3667,7 +3650,7 @@ def smoke(torch, renders) -> int:
           f"{1e3 * per_frame[len(per_frame) // 2]:.3f} max {1e3 * per_frame[-1]:.3f} "
           f"[{card}]")
     print(f"ATE (no scale alignment): {ate:.6f} m clean run, {ate_a:.6f} m "
-          f"instrumented run; limit {ATE_LIMIT_M} m")
+          f"4(a) run; limit {ATE_LIMIT_M} m")
     print(f"K1 launches during the run: {launches}")
     if launches <= 0:
         raise AssertionError("the main path never launched the extraction kernel")

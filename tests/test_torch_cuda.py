@@ -1042,3 +1042,119 @@ def test_api_functions_on_cuda_match_their_cpu_results(rng, cuda_device):
         m_d, m_c = (r.model.cpu().double() for r in (res_d, res_c))
         m_d, m_c = (m / m.norm() * torch.sign(m.flatten()[m.abs().argmax()]) for m in (m_d, m_c))
         assert (m_d - m_c).abs().max() < 2e-3, name
+
+
+@pytest.mark.cuda
+def test_track_program_kernel_count_equals_the_profilers_on_cuda(cuda_device, monkeypatch):
+    """The track program's kernel nodes, counted once at its capture
+    (`Program.kernels`, through the driver), equal the kernels that
+    `profiling.profile_stage` sees in one replay of its graph (the
+    profiler also lists the graph's memset and memcpy nodes); a tracked
+    frame that is no keyframe adds exactly them to its `graph_kernels`.
+    With every frame timed, each frame's events read its device ms, the
+    gap to the next frame and each replay's stream ms."""
+    from viso_tpu_torch import _cuda
+    from viso_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "EVENT_EVERY", 1)
+    vo, frames = _upload_engine(cuda_device)
+    try:
+        results = [vo.process(il, ir) for il, ir in frames[:8]]
+        torch.cuda.synchronize()
+        prog = vo._kernels["track"]
+        nodes = _cuda.graph_nodes(prog.graph.raw_cuda_graph())
+        row = profiling.profile_stage("track", lambda: (prog.graph.replay(), prog.outputs)[1],
+                                      reps=2)
+        recorded = profiling.RECORDER.frames(0, len(results), engine=vo.engine_id)
+    finally:
+        vo.close()
+    kinds = (_cuda.GRAPH_NODE_KERNEL, _cuda.GRAPH_NODE_MEMCPY, _cuda.GRAPH_NODE_MEMSET)
+    assert prog.kernels == nodes[_cuda.GRAPH_NODE_KERNEL] > 1000, nodes
+    assert row["fence"][0] > 0 and row["fence"][1] > 0
+    assert row["kernels"] == sum(nodes.get(k, 0) for k in kinds), (row, nodes)
+    plain = [f for f, r in zip(recorded, results) if r.state == "tracking" and not r.is_keyframe]
+    assert plain and all(f.counters["graph_kernels"] == prog.kernels for f in plain)
+    for f, r in zip(recorded[:-1], results):
+        assert f.device_ms > 0 and f.gap_ms >= 0, (f.index, f.device_ms, f.gap_ms)
+        names = [n for n, _ in f.programs]
+        assert all(ms > 0 for _, ms in f.programs)
+        assert ("track" in names) == (f.index > 0) and ("ba" in names) == (
+            r.is_keyframe and f.index > 0), (f.index, names)
+    print(f"track program: {prog.kernels} kernel nodes, nodes by type {nodes}, "
+          f"profiler {row['kernels']}")
+
+
+def _mono_engine_frames(device, n):
+    """A MonocularVO with tests/test_torch_mono.py's gates and n frames of
+    the port's synthetic corridor, which it bootstraps on."""
+    from viso_tpu_torch.data import synthetic
+    from viso_tpu_torch.geometry import camera
+    from viso_tpu_torch.slam.engine import MonocularVO, VOConfig
+
+    H, W = 192, 256
+    intr_kw = dict(fx=200.0, fy=200.0, cx=W / 2 - 0.5, cy=H / 2 - 0.5)
+    cfg = VOConfig(height=H, width=W, max_keyframes=6, max_landmarks=384, num_features=192,
+                   detect_grid=(4, 6), fast_threshold=10.0, kf_min_gap=2, kf_max_gap=6,
+                   kf_min_visible_frac=0.45, min_init_tracks=25,
+                   disparity_squared_thresh=25.0, stats_deterministic=True, **intr_kw)
+    intr = camera.Intrinsics.create(**intr_kw)
+    scene = synthetic.corridor_scene(np.random.default_rng(7), tex_size=512)
+    Rs, ts = synthetic.forward_trajectory(n, step=0.15, yaw_rate=0.004)
+    frames = [np.clip(scene.render(intr, R, t, H, W)[0], 0, 255).astype(np.uint8)
+              for R, t in zip(Rs, ts)]
+    return MonocularVO(cfg, device=device), frames
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mono", [False, True], ids=["stereo", "mono"])
+def test_recorder_adds_no_synchronising_call_on_cuda(cuda_device, mono):
+    """A tracked stereo window (after the warm-up's captures) and a mono
+    window from its first frame through its bootstrap, under
+    `set_sync_debug_mode("warn")`: every synchronising call warned from
+    `slam/engine.py` is at `engine._host`, the one host read the frames'
+    `host_syncs` count, and there are no more of them than the count; none
+    is warned from the recorder (`utils/profiling.py`)."""
+    import inspect
+    import os
+    import warnings
+
+    from viso_tpu_torch.slam import engine
+    from viso_tpu_torch.utils import profiling
+
+    src, first = inspect.getsourcelines(engine._host)
+    host_line = first + next(i for i, line in enumerate(src) if "x.cpu()" in line)
+    if mono:
+        vo, frames = _mono_engine_frames(cuda_device, 20)
+        warm, window = [], frames
+    else:
+        vo, frames = _upload_engine(cuda_device)
+        warm, window = frames[:6], frames[6:]
+    try:
+        for f in warm:
+            vo.process(*f)
+        torch.cuda.synchronize()
+        start = vo.frame_idx + 1
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for f in window:
+                    vo.process(*((f,) if mono else f))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        state = vo.state
+        recorded = profiling.RECORDER.frames(start, len(window), engine=vo.engine_id)
+    finally:
+        vo.close()
+    syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    here = [(os.path.basename(w.filename), w.lineno) for w in syncs
+            if w.filename.endswith(os.path.join("slam", "engine.py"))]
+    assert all(line == host_line for _, line in here), here
+    assert not [w for w in syncs if w.filename.endswith(os.path.join("utils", "profiling.py"))]
+    counted = sum(f.counters.get("host_syncs", 0) for f in recorded)
+    assert len(recorded) == len(window) and len(here) <= counted
+    if mono:
+        assert state == "tracking" and here, (state, len(here))
+    print(f"{'mono' if mono else 'stereo'}: {len(syncs)} synchronising calls warned, "
+          f"{len(here)} from slam/engine.py, host_syncs {counted} over {len(window)} frames")

@@ -65,7 +65,13 @@ def test_run_cli_stereo_with_overlays(tmp_path, k1_calls):
     for name in ("trajectory.txt", "trajectory.png", "map_topdown.png", "map.html",
                  "summary.json"):
         assert os.path.exists(os.path.join(out, name)), name
-    assert len(_lines(os.path.join(out, "frames.jsonl"))) == 12
+    lines = _lines(os.path.join(out, "frames.jsonl"))
+    assert len(lines) == 12
+    # Each frame's host ms by span and its counters, from the frame recorder.
+    for r in lines:
+        assert r["spans_ms"]["process"] >= r["spans_ms"]["upload"] > 0, r
+        assert r["counters"].get("keyframe", 0) == int(r["kf"]), r
+    assert all("launch.track" in r["spans_ms"] for r in lines[1:])
     # Frame 0 initializes (no overlay); frames 4 and 8 draw one each.
     overlays = sorted(os.listdir(os.path.join(out, "overlays")))
     assert overlays == ["frame_000004.png", "frame_000008.png"], overlays
@@ -102,8 +108,10 @@ def test_run_cli_mono_mode(tmp_path, k1_calls):
     assert np.isfinite(summary["ate_rmse_m"]) and summary["ate_rmse_m"] < 2.0
     assert summary["keyframes"] >= 2
     assert os.path.exists(os.path.join(out, "trajectory.png"))
-    states = [r["state"] for r in _lines(os.path.join(out, "frames.jsonl"))]
+    lines = _lines(os.path.join(out, "frames.jsonl"))
+    states = [r["state"] for r in lines]
     assert len(states) == 14 and states[-1] == "tracking", states
+    assert "bootstrap" in lines[1]["spans_ms"]     # the frame recorder's spans
     _in_case_table(k1_calls)
     assert ((8, 120, 160), (16, 16), 16384, "stack") in k1_calls
     assert sum(src == "two" and shape[0] == 2 for shape, _, _, src in k1_calls) == 4   # LK

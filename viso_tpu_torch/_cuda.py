@@ -9,6 +9,11 @@ once).
 
 Raises RuntimeError, with the compiler's output, when nvcc is missing or
 a build fails; there is no fallback.
+
+`graph_nodes` counts a captured CUDA graph's nodes by type through the
+CUDA driver (ctypes too): the programs' kernel counts
+(`slam/programs.kernel_nodes`). `Events` are the driver's CUDA events,
+for the frame recorder (`utils/profiling`).
 """
 
 from __future__ import annotations
@@ -137,3 +142,101 @@ def launch_empty(lib):
     err = lib.viso_empty(torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
+
+
+# The CUDA driver's CUgraphNodeType values that `graph_nodes` names.
+GRAPH_NODE_KERNEL = 0
+GRAPH_NODE_MEMCPY = 1
+GRAPH_NODE_MEMSET = 2
+GRAPH_NODE_CHILD = 4
+_DRIVER: list = []          # the loaded driver library, once bound
+
+
+def _driver():
+    """The CUDA driver library (`libcuda.so.1`, loaded by PyTorch already),
+    with the graph and event calls of `graph_nodes` and `Events` bound."""
+    with _LOCK:
+        if not _DRIVER:
+            drv = ctypes.CDLL("libcuda.so.1")
+            p, size_p = ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)
+            drv.cuGraphGetNodes.argtypes = [p, p, size_p]
+            drv.cuGraphNodeGetType.argtypes = [p, ctypes.POINTER(ctypes.c_int)]
+            drv.cuGraphChildGraphNodeGetGraph.argtypes = [p, ctypes.POINTER(p)]
+            drv.cuEventCreate.argtypes = [ctypes.POINTER(p), ctypes.c_uint]
+            drv.cuEventRecord.argtypes = [p, p]
+            drv.cuEventQuery.argtypes = [p]
+            drv.cuEventElapsedTime.argtypes = [ctypes.POINTER(ctypes.c_float), p, p]
+            drv.cuEventDestroy_v2.argtypes = [p]
+            for fn in (drv.cuGraphGetNodes, drv.cuGraphNodeGetType,
+                       drv.cuGraphChildGraphNodeGetGraph, drv.cuEventCreate, drv.cuEventRecord,
+                       drv.cuEventQuery, drv.cuEventElapsedTime, drv.cuEventDestroy_v2):
+                fn.restype = ctypes.c_int
+            _DRIVER.append(drv)
+    return _DRIVER[0]
+
+
+class Events:
+    """The CUDA driver's events (`CUevent` handles as ints, with timing),
+    recorded on a raw stream handle (`torch.cuda.Stream.cuda_stream`) of
+    the calling thread's current context, and read without waiting: a
+    few microseconds a call cheaper than `torch.cuda.Event`, whose calls
+    each set the device. Raises OSError without a driver."""
+
+    def __init__(self):
+        drv = _driver()
+        self.record = drv.cuEventRecord            # (event, stream) -> error code
+        self._query = drv.cuEventQuery
+        self._elapsed = drv.cuEventElapsedTime
+        self._destroy = drv.cuEventDestroy_v2
+        self._create = drv.cuEventCreate
+        self._ms = ctypes.c_float()
+        self._ms_ref = ctypes.byref(self._ms)
+
+    def create(self) -> int:
+        ev = ctypes.c_void_p()
+        _check(self._create(ctypes.byref(ev), 0), "cuEventCreate")
+        return ev.value
+
+    def done(self, event) -> bool:
+        """Whether the work before the event's record has completed."""
+        return self._query(event) == 0
+
+    def elapsed_ms(self, start, end):
+        """Stream ms between two completed events; None if the driver
+        refuses (an event not recorded, or not completed)."""
+        return self._ms.value if self._elapsed(self._ms_ref, start, end) == 0 else None
+
+    def destroy(self, event):
+        self._destroy(event)
+
+
+def _check(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA driver error {err}")
+
+
+def graph_nodes(graph: int) -> dict:
+    """The nodes of a CUDA graph (a `cudaGraph_t`, as `torch.cuda.CUDAGraph.
+    raw_cuda_graph()` gives it) by the driver's node type, the nodes of
+    its child graphs counted in place of the child nodes: {type: count}
+    (`GRAPH_NODE_KERNEL`: kernels). Raises OSError without a driver and
+    RuntimeError when the driver refuses a query."""
+    drv = _driver()
+    n = ctypes.c_size_t(0)
+    _check(drv.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _check(drv.cuGraphGetNodes(graph, ctypes.cast(nodes, ctypes.c_void_p), ctypes.byref(n)),
+           "cuGraphGetNodes")
+    counts: dict = {}
+    kind = ctypes.c_int(0)
+    for node in nodes[:n.value]:
+        _check(drv.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value == GRAPH_NODE_CHILD:
+            child = ctypes.c_void_p()
+            _check(drv.cuGraphChildGraphNodeGetGraph(node, ctypes.byref(child)),
+                   "cuGraphChildGraphNodeGetGraph")
+            for k, v in graph_nodes(child.value).items():
+                counts[k] = counts.get(k, 0) + v
+        else:
+            counts[kind.value] = counts.get(kind.value, 0) + 1
+    return counts

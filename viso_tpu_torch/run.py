@@ -5,8 +5,10 @@
       --sequence 00 --mode stereo --max-frames 500 --out-dir out/
   python -m viso_tpu_torch.run --dataset synthetic --mode mono --device cpu
 
-Writes the trajectory (KITTI format), a JSONL per-frame log, the summary
-JSON, a top-down trajectory and map plot (skipped, and said so in the
+Writes the trajectory (KITTI format), a JSONL per-frame log
+(`frames.jsonl`: each frame's engine numbers, and its host ms by span and
+its counters from the frame recorder, `utils/profiling.RECORDER`), the
+summary JSON, a top-down trajectory and map plot (skipped, and said so in the
 summary, where matplotlib is not installed), a 3-D map viewer (HTML) and,
 when the dataset ships ground truth, ATE/RPE. The engine runs on
 `--device` (default `cuda`); without a CUDA device the run stops unless
@@ -231,6 +233,7 @@ def _run(args, device):
 
     from viso_tpu_torch.utils import checkpoint, metrics, viz
     from viso_tpu_torch.utils import logging as vlog
+    from viso_tpu_torch.utils.profiling import RECORDER
 
     os.makedirs(args.out_dir, exist_ok=True)
     seq = _load_sequence(args)
@@ -275,6 +278,8 @@ def _run(args, device):
             else:
                 r = vo.process(frame.image, frame.image_right)
             processed_idx.append(frame.index)
+            # The frame's spans (host ms) and counters from the recorder.
+            recorded = RECORDER.frame(vo.engine_id, vo.frame_idx)
             log.log_frame(
                 frame.index,
                 num_tracked=r.num_tracked,
@@ -282,6 +287,7 @@ def _run(args, device):
                 num_keyframes=len(vo.kf_order),
                 is_keyframe=r.is_keyframe,
                 state=r.state,
+                extra=recorded.summary() if recorded is not None else {},
             )
             if args.viz_every and frame.index % args.viz_every == 0:
                 write_overlay(frame.index)

@@ -67,10 +67,20 @@ No CUDA graph capture runs outside an engine call: `process()` first
 makes the captures that another thread (the SLAM loop worker) asked for
 (`programs.Cache.drain`), so a caller may synchronise the whole device
 between calls.
+
+Each `process()` call is a frame of the frame recorder
+(`utils/profiling.RECORDER`): its root span `process`, with the spans
+`upload`, `stats_wait`, `bootstrap` and `reinit` and the programs' own
+inside it, and the counters `keyframe` (each result that is a keyframe),
+`reinits` and `host_syncs`: a stats sample that had not landed when it
+was read, and every other read of a device tensor on the host here, all
+of which go through `_host`.
 """
 
 from __future__ import annotations
 
+import functools
+import itertools
 from dataclasses import dataclass
 
 import numpy as np
@@ -82,6 +92,7 @@ from viso_tpu_torch.geometry import se3, triangulation
 from viso_tpu_torch.mapping import map_state
 from viso_tpu_torch.ops import align, direct, fast, lk, pnp, pyramid, stereo, twoview
 from viso_tpu_torch.slam import programs
+from viso_tpu_torch.utils.profiling import RECORDER
 
 # The engine programs: name -> the method that is the bare function.
 PROGRAMS = {"track": "_track", "templates": "_templates_program", "ba": "_ba_program",
@@ -90,6 +101,44 @@ PROGRAMS = {"track": "_track", "templates": "_templates_program", "ba": "_ba_pro
 # write-back (the solve eager over gloo: `dist_ba.capturable`).
 DIST_BA_PROGRAMS = {"ba_prep": "_ba_prep_program", "ba_solve": "_dist_ba_solve",
                     "ba_finish": "_ba_finish_program"}
+# Engine ids, which the recorder's frames carry.
+_ENGINE_IDS = itertools.count()
+
+
+def _host(x: torch.Tensor) -> torch.Tensor:
+    """`x` on the host: every read of a device tensor on the host in this
+    module but the stats samples' (`BaseVO._stats_result`). A CUDA tensor's
+    waits for the device, and counts as one of the frame's `host_syncs`."""
+    if x.is_cuda:
+        RECORDER.count("host_syncs")
+    return x.cpu()
+
+
+def _recorded_frame(process):
+    """`process` as a frame of the recorder: its root span, and the frame's
+    first and last CUDA events on a CUDA engine."""
+    @functools.wraps(process)
+    def recorded(self, *images):
+        RECORDER.open_frame(self.engine_id, self.frame_idx + 1, self.device)
+        try:
+            return process(self, *images)
+        finally:
+            RECORDER.close_frame(self.state)
+
+    return recorded
+
+
+def _span(name):
+    """A method as a span `name` of the recorder's frame."""
+    def wrap(method):
+        @functools.wraps(method)
+        def recorded(*args, **kw):
+            with RECORDER.time(name):
+                return method(*args, **kw)
+
+        return recorded
+
+    return wrap
 
 
 @dataclass
@@ -267,6 +316,7 @@ class BaseVO:
     def __init__(self, config: VOConfig, device):
         self.cfg = config
         self.device = torch.device(device)
+        self.engine_id = next(_ENGINE_IDS)
         self.intr = config.intrinsics()
         # The reference holds a jax.random key here: the monocular
         # bootstrap's RANSAC draws come from this generator.
@@ -329,6 +379,15 @@ class BaseVO:
             return self._staging.upload(a, self.device)
         # A copy: the caller may write into its array before process().
         return torch.from_numpy(np.array(a, order="C"))
+
+    def _upload_frame(self, *images):
+        """A frame's images through `_upload`, in one `upload` span of the
+        recorder when any is a host array (one staged by `to_device` is
+        already on the device)."""
+        if all(isinstance(im, torch.Tensor) for im in images):
+            return tuple(self._upload(im) for im in images)
+        with RECORDER.time("upload"):
+            return tuple(self._upload(im) for im in images)
 
     def _next_kf_slot_peek(self) -> int:
         """Slot for the next keyframe; pops the oldest from kf_order if the
@@ -422,7 +481,8 @@ class BaseVO:
                 prog = self._sharded_solver().program(self._cache)
             else:
                 method = PROGRAMS.get(name) or DIST_BA_PROGRAMS[name]
-                prog = programs.Program(getattr(self, method), self.device, self._owned)
+                prog = programs.Program(getattr(self, method), self.device, self._owned,
+                                        name=name)
             self._kernels[name] = prog
         return prog
 
@@ -693,17 +753,17 @@ class BaseVO:
             delta = self.cfg.stats_hard_lag or self.cfg.stats_max_lag
             while q and self.frame_idx - q[0][0] >= delta:
                 f, fetch = q.pop(0)
-                consumed = (f, fetch.result()[0])
+                consumed = (f, self._stats_result(fetch))
         else:
             while q and q[0][1].done():
                 f, fetch = q.pop(0)
-                consumed = (f, fetch.result()[0])
+                consumed = (f, self._stats_result(fetch))
             if q and self.frame_idx - q[0][0] >= self._stats_hard_lag():
                 f, fetch = q.pop(0)
-                consumed = (f, fetch.result()[0])
+                consumed = (f, self._stats_result(fetch))
                 while q and q[0][1].done():
                     f, fetch = q.pop(0)
-                    consumed = (f, fetch.result()[0])
+                    consumed = (f, self._stats_result(fetch))
         if consumed is not None:
             self._stats_frame = consumed[0]
             n_tracked, n_points = (int(v) for v in consumed[1])
@@ -718,6 +778,17 @@ class BaseVO:
             self._last_track = (ok_align, refined, pyr[0], self.frame_idx)
         return ok_align, refined, n_tracked, pyr
 
+    @staticmethod
+    def _stats_result(fetch):
+        """A stats sample's values on the host (`HostFetch.result`). A sample
+        that has not landed yet is waited for, in a `stats_wait` span, one
+        of the frame's `host_syncs`."""
+        if fetch.done():
+            return fetch.result()[0]
+        with RECORDER.time("stats_wait"):
+            RECORDER.count("host_syncs")
+            return fetch.result()[0]
+
     def close(self):
         """Drop in-flight stats fetches and the engine's programs. Their
         CUDA graphs go here, not whenever the engine's reference cycles are
@@ -726,6 +797,7 @@ class BaseVO:
         destroyed after an engine run would wait on it for ever."""
         self._pending_stats = []
         self._kernels = {}
+        RECORDER.release(self.engine_id)
 
     def _stats_fresh(self) -> bool:
         """True when the last consumed stats sample postdates the newest
@@ -756,7 +828,7 @@ class BaseVO:
             return False
         n_landmarks = getattr(self, "_n_points_cache", None)
         if n_landmarks is None:
-            n_landmarks = int(self.map.num_points)
+            n_landmarks = int(_host(self.map.num_points))
         if n_landmarks == 0:
             return True
         return n_tracked < cfg.kf_min_visible_frac * min(
@@ -768,6 +840,8 @@ class BaseVO:
         return _pull_poses(self.results)
 
     def _record(self, **kw):
+        if kw.get("is_keyframe"):
+            RECORDER.count("keyframe")
         self.results.append(FrameResult(R=self.R.clone(), t=self.t.clone(), **kw))
 
 
@@ -784,8 +858,9 @@ class StereoVO(BaseVO):
         process() accepts the returned pair directly. Call it one frame
         ahead: on CUDA the copy is enqueued on the current stream and the
         host does not wait for it (`FrameStaging`)."""
-        return self._upload(img_left), self._upload(img_right)
+        return self._upload_frame(img_left, img_right)
 
+    @_recorded_frame
     def process(self, img_left, img_right) -> FrameResult:
         cfg = self.cfg
         self._drain_captures()
@@ -800,7 +875,7 @@ class StereoVO(BaseVO):
             self.state = "tracking"
             self.last_pyr = pyr
             self.last_kf_frame = self.frame_idx
-            self._n_points_cache = int(self.map.num_points)
+            self._n_points_cache = int(_host(self.map.num_points))
             self._record(
                 num_tracked=0,
                 num_landmarks=self._n_points_cache,
@@ -921,8 +996,9 @@ class MonocularVO(BaseVO):
     def to_device(self, img):
         """Upload a frame as a uint8 tensor on the engine's device (one
         frame ahead, as StereoVO.to_device)."""
-        return self._upload(img)
+        return self._upload_frame(img)[0]
 
+    @_recorded_frame
     def process(self, img) -> FrameResult:
         cfg = self.cfg
         self._drain_captures()
@@ -967,7 +1043,7 @@ class MonocularVO(BaseVO):
         self.last_pyr = pyr
         self._record(
             num_tracked=0,
-            num_landmarks=int(self.map.num_points),   # a host read, as the reference's
+            num_landmarks=int(_host(self.map.num_points)),   # a host read, as the reference's
             is_keyframe=self.state == "tracking",
             state="init",
         )
@@ -981,9 +1057,11 @@ class MonocularVO(BaseVO):
             self.map = map_state.evict_keyframe(self.map, slot)
         return slot
 
+    @_span("reinit")
     def _reinitialize(self, pyr):
         """Drop the map and bootstrap a new segment at the current pose."""
         cfg = self.cfg
+        RECORDER.count("reinits")
         self._last_track = None   # overlay data of the old segment is stale
         # Scale priors for the new segment (see _try_initialize): the
         # camera's speed and the visible scene's depth are continuous
@@ -1029,7 +1107,7 @@ class MonocularVO(BaseVO):
         m = self.map
         p_cam = se3.transform(self.R, self.t, m.points)
         z = torch.where(m.point_mask, p_cam[:, 2], float("nan"))
-        med = float(torch.nanquantile(z, 0.5))
+        med = float(_host(torch.nanquantile(z, 0.5)))
         if not np.isfinite(med) or med <= 1e-6:
             return None
         return med
@@ -1073,6 +1151,7 @@ class MonocularVO(BaseVO):
         self.R = R_f @ self.R
         self.t = R_f @ self.t + t_f
 
+    @_span("bootstrap")
     def _try_initialize(self, pyr):
         """Two-view bootstrap with chained correspondence tracking.
 
@@ -1095,7 +1174,7 @@ class MonocularVO(BaseVO):
             kp2, ok, n_tracks, x1, x2 = self._cache.run(
                 "init_track", self._init_track_program, {}, self.last_pyr, pyr, cur_kps, mask,
                 ref_kps, counted=True)
-            n_tracks = int(n_tracks)
+            n_tracks = int(_host(n_tracks))
             if n_tracks < cfg.min_init_tracks:
                 reseed = True
             else:
@@ -1114,10 +1193,10 @@ class MonocularVO(BaseVO):
             disparity_squared_thresh=cfg.disparity_squared_thresh,
         )
         res = twoview.initialize(self.generator, x1, x2, ok, params, run=self._cache.run)
-        disp_ok, n_inl, med_par = torch.stack([
+        disp_ok, n_inl, med_par = _host(torch.stack([
             res.disparity_ok.to(torch.float32), res.num_inliers.to(torch.float32),
             res.median_parallax_deg,
-        ]).tolist()
+        ])).tolist()
         if not disp_ok:
             return
         # Rotation-compensated baseline gate, relaxing with init age down
@@ -1142,15 +1221,15 @@ class MonocularVO(BaseVO):
             # across occlusions) cross-checked with speed continuity.
             s_d = None
             if depth_prior is not None:
-                z = res.points[:, 2].cpu().numpy()
-                inl_np = res.inliers.cpu().numpy()
+                z = _host(res.points[:, 2]).numpy()
+                inl_np = _host(res.inliers).numpy()
                 med_boot = float(np.median(z[inl_np])) if inl_np.any() else 0.0
                 if med_boot > 1e-9:
                     s_d = depth_prior / med_boot
             s_s = None
             if speed_prior is not None:
                 gap = max(1, self.frame_idx - ref_idx)
-                meas = float(np.linalg.norm(res.t.cpu().numpy()))
+                meas = float(np.linalg.norm(_host(res.t).numpy()))
                 if meas > 1e-9:
                     s_s = speed_prior * gap / meas
             s = blend_recovery_scale(s_d, s_s)
@@ -1336,8 +1415,8 @@ def _pull_poses(results):
     """Stack per-frame (R, t) tensors and pull them to the host at once."""
     if not results:
         return np.zeros((0, 3, 3), np.float32), np.zeros((0, 3), np.float32)
-    R = torch.stack([r.R for r in results]).cpu().numpy()
-    t = torch.stack([r.t for r in results]).cpu().numpy()
+    R = _host(torch.stack([r.R for r in results])).numpy()
+    t = _host(torch.stack([r.t for r in results])).numpy()
     return R.astype(np.float32), t.astype(np.float32)
 
 

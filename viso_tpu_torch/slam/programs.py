@@ -33,6 +33,13 @@ measures how far each counter moved inside it (the launches the graph
 holds), takes that back (a capture launches nothing), and each replay
 adds it (`Program._replayed`).
 
+Each call is a span of the frame recorder (`utils/profiling.RECORDER`),
+`launch.<name>`, and a capture is `capture.<name>` inside it (or inside
+a drain's `drain`), counted as `captures`. A capture keeps its graph's
+`cudaGraph_t` to count the kernel nodes once (`Program.kernels`); each
+replay runs between a pair of the frame's CUDA events and adds that
+count to the frame's `graph_kernels`.
+
 The bare functions stay callable: tools and checks that want the eager
 version call them directly (`vo._track(...)`).
 
@@ -76,7 +83,9 @@ import time
 
 import torch
 
+from viso_tpu_torch import _cuda
 from viso_tpu_torch.geometry import extract, extract_aligned
+from viso_tpu_torch.utils.profiling import RECORDER
 
 # (object, attribute) of each Python-side launch counter of the port.
 COUNTERS = ((extract.launch, "launches"), (extract_aligned.launch, "launches"))
@@ -180,35 +189,42 @@ class Program:
         self._out_leaves = None  # (CPU) the output leaves and which of
         self._passed = None      # them are views of an input
         self.counts = {}        # counter moves one replay holds
+        self.kernels = None     # kernel nodes of its graph (None: not counted)
         self.calls = 0
         self.replays = 0
+        self._span = "launch." + self.name
 
     def __call__(self, *args):
-        self._stage(args)
-        self.calls += 1
-        if not self.graphed:
-            return self._eager()
-        graph = self.graph   # read once: another thread may set it
-        if graph is None:
-            if self.cache is not None and (self.calls == 1 or not self.cache.capture_here(self)):
-                return self.fn(*unflatten(self.spec, self.inputs))
-            self.capture()
-            graph = self.graph
-        graph.replay()
-        self._replayed()
-        return self.outputs
+        with RECORDER.time(self._span):
+            self._stage(args)
+            self.calls += 1
+            if not self.graphed:
+                return self._eager()
+            graph = self.graph   # read once: another thread may set it
+            if graph is None:
+                if self.cache is not None and (self.calls == 1
+                                               or not self.cache.capture_here(self)):
+                    return self.fn(*unflatten(self.spec, self.inputs))
+                self.capture()
+                graph = self.graph
+            RECORDER.replay(self.name, graph, self.kernels)
+            self._replayed()
+            return self.outputs
 
     def capture(self):
         """Capture the program on its staged inputs (`_capture`): a cache's
         program with no further warm-up on the cache's stream for the
         thread that made it, any other on a new side stream after
-        WARMUP_CALLS."""
+        WARMUP_CALLS. Counts its graph's kernel nodes."""
         kw = {}
         if self.cache is not None:
             kw = {"warmups": 0, "counted": self.counted,
                   "stream": self.cache.capture_stream(self.thread)}
-        graph, self.outputs, self.counts = _capture(
-            self.fn, unflatten(self.spec, self.inputs), self.device, **kw)
+        RECORDER.count("captures")
+        with RECORDER.time("capture." + self.name):
+            graph, self.outputs, self.counts = _capture(
+                self.fn, unflatten(self.spec, self.inputs), self.device, **kw)
+            self.kernels = kernel_nodes(graph)
         self.graph = graph   # last: a thread that sees the graph finds its outputs
 
     def _replayed(self):
@@ -346,12 +362,15 @@ class Cache:
         """Make, on the calling thread, the captures that programs made on
         another thread asked for (each on the stream of the thread that
         made it). The engine calls this inside its own calls only."""
-        while self._requests:
-            prog = self._requests.popleft()
-            if prog.graph is None:
-                t0 = time.perf_counter()
-                prog.capture()
-                self.captures.append((prog.name, time.perf_counter() - t0))
+        if not self._requests:
+            return
+        with RECORDER.time("drain"):
+            while self._requests:
+                prog = self._requests.popleft()
+                if prog.graph is None:
+                    t0 = time.perf_counter()
+                    prog.capture()
+                    self.captures.append((prog.name, time.perf_counter() - t0))
 
     def capture_stream(self, thread):
         """The stream the captures of the programs made on `thread` (an
@@ -372,7 +391,9 @@ def _capture(fn, args, device, warmups=WARMUP_CALLS, counted=True, stream=None):
     main = torch.cuda.current_stream(device)
     stream = stream if stream is not None else torch.cuda.Stream(device)
     stream.wait_stream(main)
-    graph = torch.cuda.CUDAGraph()
+    # The cudaGraph_t is kept, for `kernel_nodes`; the executable graph is
+    # made below, once the capture has ended.
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     out = []
 
     def capture():
@@ -391,8 +412,23 @@ def _capture(fn, args, device, warmups=WARMUP_CALLS, counted=True, stream=None):
     else:
         capture()
         counts = {}
+    with torch.cuda.device(device):
+        graph.instantiate()
     main.wait_stream(stream)
     return graph, out[0], counts
+
+
+def kernel_nodes(graph):
+    """The kernel nodes of a captured graph that keeps its `cudaGraph_t`
+    (`_capture`), its child graphs' included (`_cuda.graph_nodes`); None
+    for any other graph, or where the driver cannot be asked."""
+    raw = getattr(graph, "raw_cuda_graph", None)
+    if raw is None:
+        return None
+    try:
+        return _cuda.graph_nodes(raw()).get(_cuda.GRAPH_NODE_KERNEL, 0)
+    except (OSError, RuntimeError):
+        return None
 
 
 # Captures in flight, and whether the collector ran before the first.

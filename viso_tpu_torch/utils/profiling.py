@@ -1,14 +1,61 @@
 """Profiling hooks: wall-clock stage timers and torch.profiler traces
-(port of `viso_tpu/utils/profiling.py`)."""
+(port of `viso_tpu/utils/profiling.py`), and the engines' frame recorder.
+
+`RECORDER` is the process-wide `FrameRecorder`, a `StageTimer` that also
+keeps, for each engine frame, the spans and counters that the engines and
+their programs record on the frame's thread (`slam/engine.py`,
+`slam/programs.py`), in a preallocated ring of `RING_FRAMES` frames:
+
+  spans     `process` (the root: `StereoVO.process`, `MonocularVO.process`),
+            `upload` (`BaseVO._upload_frame`, also when a caller stages a
+            frame ahead with `to_device`), `launch.<program>` (a program's call:
+            its arguments staged and its graph replayed), `capture.<program>`
+            (a capture, inside its launch or a drain), `drain`
+            (`programs.Cache.drain` with captures to make), `stats_wait`
+            (a stats sample waited for on the host), `bootstrap` and `reinit`
+            (`MonocularVO._try_initialize`, `_reinitialize`);
+  counters  `host_syncs` (a stats sample not landed when read, or any
+            other read of a device tensor on the host in
+            `slam/engine.py`), `keyframe`, `reinits`, `captures`, and
+            `graph_kernels` (the kernel nodes of the graphs the frame
+            replayed; only on a CUDA engine);
+  events    on a CUDA engine, on one frame in `EVENT_EVERY`: CUDA events at
+            the frame's first and last enqueue, around each program's
+            graph replay, and at the next frame's first enqueue, from a
+            pool of `EVENT_FRAMES` such frames an engine. A frame's events
+            are read when its slot comes round again, if they have
+            completed, or by `collect`: the recorder never waits on one.
+            Events cost the host ~100 us a frame on an H100's host (each
+            call 2-5 us, more beside a graph launch), hence the sampling.
+
+It reads no device value and adds no host synchronisation. While a
+`torch.profiler` runs, each span also opens a
+`record_function("viso.<span>")` range. `RECORD = False` turns it off.
+"""
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from collections import defaultdict
 
 import torch
+
+# Whether `RECORDER` records (set False to measure what recording costs).
+RECORD = True
+# Frames the recorder's ring holds; the oldest record is reused first.
+RING_FRAMES = 16384
+# One frame in this many takes CUDA events (1: every frame).
+EVENT_EVERY = 16
+# An engine's CUDA event slots: a frame's events are read when its slot
+# comes round again, EVENT_FRAMES * EVENT_EVERY frames later.
+EVENT_FRAMES = 128
+# Program replays of one frame timed with events; later ones are not.
+EVENT_REPLAYS = 8
+# Prefix of the spans' `record_function` ranges under a profiler.
+RANGE_PREFIX = "viso."
 
 
 def _cuda_devices(out):
@@ -62,6 +109,350 @@ class StageTimer:
                 f"{total / n * 1e3:8.2f} ms/call  x{n}"
             )
         return "\n".join(rows)
+
+
+class Frame:
+    """One engine frame in the recorder's ring.
+
+    engine, index: the engine's id (`BaseVO.engine_id`) and the frame's
+      `frame_idx`, which its spans share;
+    spans: (name, start ns, end ns, parent) each, on `time.perf_counter_ns()`'s
+      clock; parent is the index of the span it ran in, -1 for none (a
+      frame staged ahead of its `process()`). Kept flat in one list that
+      the ring reuses (`log`), so that recording allocates no container;
+    counters: name -> count;
+    state: the engine's state when `process()` returned;
+    programs, device_ms, gap_ms: on a CUDA engine, once its events are
+      read: (name, stream ms) of each timed replay, the stream ms from the
+      frame's first enqueue to its last, and from its last to the next
+      frame's first (None until read, or when they had not completed)."""
+
+    __slots__ = ("engine", "index", "log", "counters", "state", "programs", "device_ms",
+                 "gap_ms")
+
+    def __init__(self):
+        self.log: list = []       # name, start, end, parent of each span in turn
+        self.counters: dict = {}
+        self.reset(None, None)
+
+    def reset(self, engine, index):
+        self.engine, self.index = engine, index
+        self.log.clear()
+        self.counters.clear()
+        self.state = self.programs = self.device_ms = self.gap_ms = None
+
+    @property
+    def spans(self) -> list:
+        log = self.log
+        return list(zip(log[0::4], log[1::4], log[2::4], log[3::4]))
+
+    def span_ms(self, name: str) -> float:
+        """The summed ms of the spans called `name`, or, for a name ending
+        in ".", of every span whose name starts with it."""
+        if name.endswith("."):
+            return 1e-6 * sum(e - s for n, s, e, _ in self.spans if n.startswith(name))
+        return 1e-6 * sum(e - s for n, s, e, _ in self.spans if n == name)
+
+    def self_ms(self, index: int = 0) -> float:
+        """The ms of span `index` (0: the root, `process`) less the union of
+        its child spans' intervals."""
+        start, end = self.log[4 * index + 1:4 * index + 3]
+        covered, reach = 0, start
+        for s, e in sorted((s, e) for _, s, e, p in self.spans if p == index):
+            s, e = max(s, reach), min(e, end)
+            if e > s:
+                covered += e - s
+                reach = e
+        return 1e-6 * (end - start - covered)
+
+    def summary(self) -> dict:
+        """The frame's host ms by span name and its counters, as an
+        operator's log takes them (`run.py`'s `frames.jsonl`)."""
+        spans: dict = {}
+        for n, s, e, _ in self.spans:
+            spans[n] = spans.get(n, 0.0) + 1e-6 * (e - s)
+        return {"spans_ms": {n: round(v, 3) for n, v in spans.items()},
+                "counters": dict(self.counters)}
+
+
+class _Span:
+    """A span of the recorder's newest frame (`FrameRecorder.time`)."""
+
+    __slots__ = ("rec", "name", "log", "index", "t0", "range")
+
+    def __init__(self, rec, name):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        rec = self.rec
+        log = rec.current.log
+        self.log = log
+        stack = rec.stack
+        self.index = len(log)   # of the span's name in the frame's log
+        log.extend((self.name, 0, 0, stack[-1] if stack else -1))
+        stack.append(self.index // 4)
+        self.range = None
+        if _profiler_enabled():
+            self.range = torch.autograd.profiler.record_function(RANGE_PREFIX + self.name)
+            self.range.__enter__()
+        self.t0 = _now()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = _now()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        i = self.index
+        self.log[i + 1] = self.t0
+        self.log[i + 2] = t1
+        stack = self.rec.stack
+        if stack and stack[-1] == i // 4:
+            stack.pop()
+        return False
+
+
+class _EventSlot:
+    """One frame's CUDA events (`_cuda.Events` handles): its first and last
+    enqueue, a pair around each of up to EVENT_REPLAYS replays, and the
+    next frame's first enqueue."""
+
+    __slots__ = ("frame", "engine", "index", "stream", "closed", "followed", "start", "end",
+                 "next_start", "pairs", "names", "used")
+
+    def __init__(self, events):
+        self.frame = self.engine = self.index = self.stream = None
+        self.closed = False     # its frame's last event recorded
+        self.followed = False   # the next frame's first event recorded
+        self.start, self.end, self.next_start = events.create(), events.create(), events.create()
+        self.pairs = [(events.create(), events.create()) for _ in range(EVENT_REPLAYS)]
+        self.names = [None] * EVENT_REPLAYS
+        self.used = 0
+
+
+class _EventPool:
+    """An engine's event slots, timed frame `i` (`i % EVENT_EVERY == 0`) in
+    slot `i // EVENT_EVERY % EVENT_FRAMES`, on the device `index` (the
+    current device when the engine first ran)."""
+
+    def __init__(self, events, index: int):
+        self.events, self.index = events, index
+        self.slots = [_EventSlot(events) for _ in range(EVENT_FRAMES)]
+
+    def _slot(self, index: int) -> _EventSlot:
+        return self.slots[index // EVENT_EVERY % EVENT_FRAMES]
+
+    def open(self, frame, stream) -> _EventSlot:
+        """The slot of `frame` (the frame it held read first, if its events
+        have completed), its start recorded on `stream`."""
+        slot = self._slot(frame.index)
+        if slot.frame is not None:
+            self.read(slot)
+        slot.frame, slot.engine, slot.index, slot.stream = frame, frame.engine, frame.index, stream
+        slot.closed = slot.followed = False
+        slot.used = 0
+        self.events.record(slot.start, stream)
+        return slot
+
+    def follow(self, index: int, stream):
+        """Record the first enqueue of the frame after frame `index` in its
+        slot, if frame `index` was timed."""
+        if index % EVENT_EVERY:
+            return
+        slot = self._slot(index)
+        if slot.frame is not None and slot.index == index and slot.closed and not slot.followed:
+            self.events.record(slot.next_start, stream)
+            slot.followed = True
+
+    def read(self, slot) -> bool:
+        """Read a slot's events into its frame if they have completed
+        (False, and nothing read, if not: the recorder never waits), and
+        free the slot. A frame left open (its last event never recorded)
+        reads nothing."""
+        ev = self.events
+        if slot.closed and not ev.done(slot.end):
+            return False
+        frame, slot.frame = slot.frame, None
+        if not slot.closed or frame.engine != slot.engine or frame.index != slot.index:
+            return True   # left open, or the ring has reused the frame's record
+        frame.device_ms = ev.elapsed_ms(slot.start, slot.end)
+        frame.programs = [(slot.names[i], ev.elapsed_ms(s, e))
+                          for i, (s, e) in enumerate(slot.pairs[:slot.used])]
+        if slot.followed and ev.done(slot.next_start):
+            frame.gap_ms = ev.elapsed_ms(slot.end, slot.next_start)
+        return True
+
+    def close(self):
+        """Read what has completed, then destroy the events."""
+        for slot in sorted((s for s in self.slots if s.frame is not None and s.closed),
+                           key=lambda s: s.index):
+            self.read(slot)
+        for slot in self.slots:
+            for e in (slot.start, slot.end, slot.next_start,
+                      *(x for pair in slot.pairs for x in pair)):
+                self.events.destroy(e)
+
+
+def _event_pool(device):
+    """A new event pool for an engine on `device`, or None where the
+    recorder takes no events there: a device other than the current one
+    (the driver's events belong to the calling thread's context), or no
+    driver."""
+    from viso_tpu_torch import _cuda
+
+    current = torch.cuda.current_device()
+    if device.index not in (None, current):
+        return None
+    try:
+        return _EventPool(_cuda.Events(), current)
+    except (OSError, RuntimeError):
+        return None
+
+
+class FrameRecorder(StageTimer):
+    """The engines' frame recorder (module docstring): a `StageTimer`
+    whose `time(name)` is a span of the newest frame, recorded only on the
+    thread that opened it (the engine's dispatch thread). It keeps each
+    frame's spans in the ring and sums none into `totals` (the tools'
+    timers do): every microsecond here is a frame's."""
+
+    def __init__(self, frames: int = RING_FRAMES):
+        super().__init__()
+        self.size = frames
+        self.ring: list = []     # made at the first frame
+        self.opened = 0          # frames opened so far
+        self.current = None      # the newest frame
+        self.thread = None       # the thread that opened it
+        self.stack: list = []    # indices of its open spans
+        self._slot = None        # its event slot while process() runs
+        self._root_range = None
+        self._pools: dict = {}   # engine id -> _EventPool, or None: no events
+
+    def _here(self) -> bool:
+        return RECORD and self.current is not None and threading.get_ident() == self.thread
+
+    def time(self, name: str):
+        """A span called `name` of the newest frame (a context manager);
+        nothing when the recorder is off or on another thread."""
+        if RECORD and self.current is not None and threading.get_ident() == self.thread:
+            return _Span(self, name)
+        return _NULL
+
+    def count(self, name: str, n: int = 1):
+        """Add `n` to the newest frame's counter `name`."""
+        if RECORD and self.current is not None and threading.get_ident() == self.thread:
+            c = self.current.counters
+            c[name] = c.get(name, 0) + n
+
+    def open_frame(self, engine: int, index: int, device):
+        """Start frame `index` of engine `engine` with its root span
+        `process`, on this thread; on a CUDA device also its first event."""
+        if not RECORD:
+            return
+        if not self.ring:
+            self.ring = [Frame() for _ in range(self.size)]
+        frame = self.ring[self.opened % self.size]
+        self.opened += 1
+        frame.reset(engine, index)
+        self.current, self.thread = frame, threading.get_ident()
+        self._slot = None
+        if device.type == "cuda":
+            frame.counters["graph_kernels"] = 0
+            if engine not in self._pools:
+                self._pools[engine] = _event_pool(device)
+            pool = self._pools[engine]
+            # Only a timed frame and the one after it record events.
+            if pool is not None and (EVENT_EVERY == 1 or index % EVENT_EVERY < 2):
+                stream = torch._C._cuda_getCurrentRawStream(pool.index)
+                pool.follow(index - 1, stream)
+                if index % EVENT_EVERY == 0:
+                    self._slot = pool.open(frame, stream)
+        self._root_range = None
+        if _profiler_enabled():
+            self._root_range = torch.autograd.profiler.record_function(RANGE_PREFIX + "process")
+            self._root_range.__enter__()
+        self.stack = [0]
+        frame.log.extend(("process", _now(), 0, -1))
+
+    def close_frame(self, state):
+        """End the newest frame's root span, with the engine's `state`."""
+        if not self._here() or not self.stack or self.stack[0] != 0:
+            return
+        frame = self.current
+        frame.log[2] = _now()
+        frame.state = state
+        self.stack = []
+        slot = self._slot
+        if slot is not None:
+            self._pools[frame.engine].events.record(slot.end, slot.stream)
+            slot.closed = True
+            self._slot = None
+        if self._root_range is not None:
+            self._root_range.__exit__(None, None, None)
+            self._root_range = None
+
+    def replay(self, name: str, graph, kernels):
+        """`graph.replay()` of program `name`, between a pair of the open
+        frame's CUDA events (its first EVENT_REPLAYS replays), its `kernels`
+        (None: not counted) added to the frame's `graph_kernels`."""
+        here = RECORD and self.current is not None and threading.get_ident() == self.thread
+        slot = self._slot if here else None
+        if slot is None or slot.used == EVENT_REPLAYS:
+            graph.replay()
+        else:
+            record = self._pools[self.current.engine].events.record
+            start, end = slot.pairs[slot.used]
+            slot.names[slot.used] = name
+            slot.used += 1
+            record(start, slot.stream)
+            graph.replay()
+            record(end, slot.stream)
+        if here:
+            c = self.current.counters
+            if kernels is None or c.get("graph_kernels") is None:
+                c["graph_kernels"] = None
+            else:
+                c["graph_kernels"] += kernels
+
+    def collect(self):
+        """Read every closed frame's events that have completed."""
+        for pool in self._pools.values():
+            if pool is not None:
+                for slot in sorted((s for s in pool.slots if s.frame is not None and s.closed),
+                                   key=lambda s: s.index):
+                    pool.read(slot)
+
+    def release(self, engine: int):
+        """Read what has completed of `engine`'s events, then destroy them
+        (the engine is closing)."""
+        pool = self._pools.pop(engine, None)
+        if pool is not None:
+            if self._slot is not None and self._slot in pool.slots:
+                self._slot = None
+            pool.close()
+
+    def frames(self, first: int, n: int, engine: int | None = None) -> list:
+        """The ring's frames `first` to `first + n - 1` of `engine` (the
+        newest frame's engine by default), in order, after `collect`."""
+        if self.current is None:
+            return []
+        self.collect()
+        engine = self.current.engine if engine is None else engine
+        got = [f for f in self.ring if f.engine == engine and first <= f.index < first + n]
+        return sorted(got, key=lambda f: f.index)
+
+    def frame(self, engine: int, index: int):
+        """The ring's record of frame `index` of `engine`, or None."""
+        if self.current is not None and (self.current.engine, self.current.index) == (
+                engine, index):
+            return self.current
+        return next((f for f in self.ring if (f.engine, f.index) == (engine, index)), None)
+
+
+_NULL = contextlib.nullcontext()
+_now = time.perf_counter_ns
+_profiler_enabled = torch.autograd._profiler_enabled
+# The process-wide recorder of the engines' frames.
+RECORDER = FrameRecorder()
 
 
 @contextlib.contextmanager
