@@ -26,7 +26,14 @@ the host by RENDER_WORKERS worker processes from the start of the run
      device_ms from a CUDA graph replay, host_ms on the host clock,
      floor_ms of an empty kernel, bound_ms from the bytes, library_ms of
      one torch.take), its plain version's device time and its eager
-     entry time from CUDA events;
+     entry time from CUDA events; (b) the direct GN kernel
+     (`csrc/direct_gn.cu`) against the plain level pass at the track's four
+     level passes on real corridor frames (`profile_direct.corridor_levels`):
+     pose and cost bit-equal to the plain pass, two calls and a graph replay
+     bit-equal to the eager call, iters + 1 launches a call; then the kernel's
+     device_ms, host_ms, floor_ms, bound_ms (its inputs read once), the plain
+     pass's device time, the whole level pass on the card (projection, K1,
+     the kernel) and the eager entry time;
   4. StereoVO at the bench-headline configuration (376x1240, KITTI
      intrinsics, 44-frame rng-42 corridor), its programs captured as CUDA
      graphs and replayed (`viso_tpu_torch/slam/programs.py`, as in every
@@ -262,9 +269,12 @@ the host by RENDER_WORKERS worker processes from the start of the run
      the wall time of each part;
  17. one JSON line with the kernel records (`launches`: the kernel's
      launches summed over the main paths it is on, each counted from 0
-     just before its path and read just after; the times: K1 summed over
-     a tracked frame's 6 calls, K2 over the tool's 12), then the last
-     line {"ok": true, "device": {...}}.
+     just before its path and read just after; direct_gn's on phases 4,
+     6-10, 15 and 16, each path's held to its track calls, the ranks'
+     held in the ranks (`profile_direct.TrackLaunches`), phase 3(b)'s
+     own calls left out; the times: K1 summed over a tracked frame's 6
+     calls, K2 over the tool's 12, direct_gn over its 4 level passes),
+     then the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or viso_tpu. Needs one CUDA device.
 """
@@ -554,6 +564,24 @@ KITTI_BASELINE, KITTI_BASELINE_TOL = 0.537, 1e-12
 FRAME_KEYS = ("device_ms", "host_ms", "floor_ms", "bound_ms", "library_ms", "plain_ms",
               "entry_ms")
 
+# The direct kernel's launches on the main paths (`direct_held`): the
+# holder installed after phase 3 (`profile_direct.TrackLaunches`), and
+# (path, launches) of each main path, the ranks' included, for the last
+# line's `kernels`; phase 3(b)'s own calls are left out.
+TRACKS = None
+DIRECT_MAIN: list = []
+
+
+def direct_held(label, ranks=None):
+    """The direct kernel's launches on the main path `label`: since its
+    `TRACKS.reset()`, held to that path's track calls (each eager or
+    captured track's min(levels, pyramid_levels) x (direct_iters + 1), each
+    replay's too), or, for spawned ranks, their `direct_launches` (each
+    rank held its own). Kept in DIRECT_MAIN; returns the count."""
+    n = TRACKS.held(label) if ranks is None else sum(r["direct_launches"] for r in ranks)
+    DIRECT_MAIN.append((label, n))
+    return n
+
 
 def kernel_cases(torch, extract, cases, dev, card):
     """Phase 3. Every case: the kernel at explicit origins (`launch`) and
@@ -675,6 +703,73 @@ def kernel_cases(torch, extract, cases, dev, card):
           nonfinite=True)
     check("edge descriptors NaN/inf", (SLAM_H, SLAM_W), (34, 34), 16, False, nonfinite=True)
     return results, max_err
+
+
+def direct_cases(torch, dev, card):
+    """Phase 3(b). The direct GN kernel at the track's four level passes
+    against the plain pass, then its timings. Returns the timings summed
+    over a tracked frame's four level passes (FRAME_KEYS, library_ms None:
+    no PyTorch call computes the pass) and the largest pose gap (m), 0 when
+    every pass is bit-equal to the plain one."""
+    from viso_tpu_torch.geometry import se3
+    from viso_tpu_torch.ops import direct
+    from viso_tpu_torch.tools import bench_extract as bx
+    from viso_tpu_torch.tools import profile_direct
+
+    c = profile_direct.corridor_levels(dev)
+    lib = direct.load_library()
+    frame = dict.fromkeys(FRAME_KEYS, 0.0)
+    frame.update(library_ms=None, pass_ms=0.0)
+    worst = 0.0
+    for level in range(4):
+        img, tmpl, _, R0, t0, intr_l, params = c["args"][level]
+        # The coarse levels' points strided, as the track hands them.
+        pts, _ = direct._level_points(c["pts"], None, level)
+        args = (img, tmpl, pts, R0, t0, intr_l, params)
+        n, win = pts.shape[0], direct._pass_window(img.shape, params.half_patch)[1]
+        before = direct.launch.launches
+        got = direct._level_pass_cached(*args)
+        again = direct._level_pass_cached(*args)
+        ref = direct.level_pass_plain(*args)
+        torch.cuda.synchronize()
+        if direct.launch.launches != before + 2 * (params.iters + 1):
+            raise AssertionError(f"direct level {level}: {direct.launch.launches - before} "
+                                 f"launches for 2 calls of {params.iters} steps")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"direct level {level}: two calls differ")
+        if not bx.graph_matches_eager(lambda: direct._level_pass_cached(*args)):
+            raise AssertionError(f"direct level {level}: graph replay != eager call")
+        gap = float(torch.linalg.norm((got[1] - ref[1]).double()))
+        rot = float(torch.linalg.norm(se3.so3_log((got[0] @ ref[0].T).double())))
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"direct level {level}: kernel against plain: {gap} m, "
+                                 f"{rot} rad, cost {float(got[2])} / {float(ref[2])}")
+        worst = max(worst, gap)
+        uv0, _ = direct.cam_mod.project(se3.transform(R0, t0, pts), intr_l)
+        windows, base = direct.extract.extract_windows_fast(img, uv0, win)
+        dense = direct.LevelTemplate(*(x.contiguous() for x in tmpl))
+        pts_c, R0c, t0c = pts.contiguous(), R0.contiguous(), t0.contiguous()
+        launch = lambda: direct.launch(windows, base, tuple(img.shape), dense,  # noqa: E731
+                                       pts_c, R0c, t0c, intr_l, params)
+        entry = lambda: direct._level_pass_cached(*args)  # noqa: E731
+        # Bytes of the pass's inputs read once (windows, origins, template
+        # patches, Jacobian, validity, depths, points, pose) and its
+        # outputs written once.
+        nbytes = 4 * (n * win * win + 2 * n + 64 * n + 6 * 64 * n + n + 3 * n + 12 + 13) + n
+        t = dict(device_ms=bx.device_ms(launch), host_ms=bx.host_ms(launch),
+                 floor_ms=bx.floor_ms(lib), bound_ms=nbytes / bx.HBM_BYTES_PER_S * 1e3,
+                 plain_ms=bx.device_ms(lambda: direct.level_pass_plain(*args)),
+                 pass_ms=bx.device_ms(entry), entry_ms=bx.cuda_ms(entry))
+        for key, v in t.items():
+            frame[key] += v
+        print(f"direct level {level}: {tuple(img.shape)} N={n} window {win} iters "
+              f"{params.iters}: bit-equal to the plain pass (cost {float(got[2]):.6f}), "
+              "relaunch and replay bit-equal; "
+              + " ".join(f"{k}={v:.6f}" for k, v in t.items()) + f" [{card}]")
+    print(f"direct GN kernel per tracked frame (4 passes, {4 * (c['params'].iters + 1)} "
+          "launches): " + " ".join(f"{k}={v:.6f}" for k, v in frame.items() if v is not None)
+          + f" [{card}]")
+    return frame, worst
 
 
 def render_frames(synthetic, scene, intr, h, w, Rs, ts, quantise=False):
@@ -951,6 +1046,7 @@ def slam_phase(torch, extract, extract_aligned, frames, Rs, ts, metrics, dev, ca
 
     extract.launch.launches = 0
     extract_aligned.launch.launches = 0
+    TRACKS.reset()
     slam = StereoSLAM(diag_loops.stereo_config(), LoopParams(min_inliers=40, max_correction_m=4.0),
                       device=dev)
     solves = SolveTimer(slam)
@@ -978,6 +1074,7 @@ def slam_phase(torch, extract, extract_aligned, frames, Rs, ts, metrics, dev, ca
         R_est, t_est = slam.trajectory()
         launches = extract.launch.launches
         k2_launches = extract_aligned.launch.launches
+        direct_n = direct_held("6 StereoSLAM")
         n_kf = sum(r.is_keyframe for r in slam.results)
         nodes = len(slam.pg_R)
         loops = list(slam.loops)
@@ -1001,7 +1098,8 @@ def slam_phase(torch, extract, extract_aligned, frames, Rs, ts, metrics, dev, ca
     ate = metrics.ate_rmse(metrics.camera_centers(R_est, t_est), metrics.camera_centers(Rs, ts),
                            align=True, with_scale=False)
     print(f"StereoSLAM ATE (no scale alignment): {ate:.6f} m; limit {SLAM_ATE_LIMIT_M} m")
-    print(f"K1 launches during the SLAM run: {launches} (K2: {k2_launches})")
+    print(f"K1 launches during the SLAM run: {launches} (K2: {k2_launches}); direct_gn "
+          f"{direct_n}, held to the tracks")
     check_funnel("StereoSLAM", counts, loops)
     if errors:
         raise AssertionError(f"{len(errors)} keyframe hook errors, first: {errors[0]!r}")
@@ -1079,6 +1177,7 @@ def mono_phase(torch, extract, frames, Rs, ts, dev, card):
     cfg = mono_cell.config()
 
     extract.launch.launches = 0
+    TRACKS.reset()
     # The engine's construction builds its templates' storage (K1).
     sites = K1Sites(torch, extract)
     with sites:
@@ -1104,6 +1203,7 @@ def mono_phase(torch, extract, frames, Rs, ts, dev, card):
             finally:
                 torch.cuda.set_sync_debug_mode(0)
         launches = extract.launch.launches
+        direct_n = direct_held("7 MonocularVO")
         syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
         from viso_tpu_torch.slam import engine
 
@@ -1156,7 +1256,7 @@ def mono_phase(torch, extract, frames, Rs, ts, dev, card):
           f"{np.median([ms for _, ms in init]):.3f} mean {np.mean([ms for _, ms in init]):.3f} "
           f"[{card}]")
     print(f"K1 launches during the mono run: {launches}, by call site "
-          f"{dict(sorted(sites.counts.items()))}")
+          f"{dict(sorted(sites.counts.items()))}; direct_gn {direct_n}, held to the tracks")
     n_kernels, dev_ms, wall_ms, k1_sites = prof_kf
     print(f"profiled mono keyframe frame: {n_kernels} kernels, {dev_ms:.3f} ms device time over "
           f"{wall_ms:.3f} ms wall (device busy {100 * dev_ms / wall_ms:.2f} %), K1 launches by "
@@ -1224,6 +1324,7 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
     from viso_tpu_torch.tools import diag_loops, mono_cell
 
     extract.launch.launches = 0
+    TRACKS.reset()
     sites = K1Sites(torch, extract)
     with sites:
         slam = MonoSLAM(mono_cell.slam_config(), mono_cell.slam_loop_params(), device=dev)
@@ -1251,6 +1352,7 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
             slam.join()
             join_s = time.perf_counter() - t1
         launches = extract.launch.launches
+        direct_n = direct_held("9 MonoSLAM")
         R_est, t_est = slam.trajectory()
         n_kf = sum(r.is_keyframe for r in slam.results)
         nodes, reinits = len(slam.pg_s), slam.num_reinits
@@ -1301,7 +1403,7 @@ def mono_slam_phase(torch, extract, frames, Rs, ts, dev, card):
           f"max |log s| gap {solve_gap[0]:.3g}, max camera-centre gap {solve_gap[1]:.3g} m, "
           f"node scales {float(s_dev.min()):.4f}-{float(s_dev.max()):.4f}")
     print(f"K1 launches during the mono SLAM run: {launches}, by call site "
-          f"{dict(sorted(sites.counts.items()))}")
+          f"{dict(sorted(sites.counts.items()))}; direct_gn {direct_n}, held to the tracks")
     check_funnel("MonoSLAM", counts, loops)
     if len(R_est) != SLAM_FRAMES or not (np.isfinite(R_est).all() and np.isfinite(t_est).all()):
         raise AssertionError("mono SLAM trajectory has the wrong length or non-finite poses")
@@ -1353,18 +1455,21 @@ def cli_phase(torch, extract, card):
             if slam_mode:
                 argv += ["--checkpoint-every", "8"]
             extract.launch.launches = 0
+            TRACKS.reset()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 summary = run.main(argv)
             launches += extract.launch.launches
+            direct_n = direct_held(f"8 CLI --mode {mode}")
             with open(os.path.join(out, "frames.jsonl")) as f:
                 n_lines = sum(1 for _ in f)
             files = sorted(os.listdir(out))
             print(f"CLI --mode {mode}: ATE {summary['ate_rmse_m']:.6f} m (limit "
                   f"{CLI_ATE_LIMITS[mode]}), {summary['keyframes']} keyframes, device "
                   f"{summary['device']}, {n_lines} log lines, K1 launches "
-                  f"{extract.launch.launches}, {time.perf_counter() - t0:.1f} s, files {files}, "
-                  f"plots_skipped {summary.get('plots_skipped')!r} [{card}]")
+                  f"{extract.launch.launches}, direct_gn {direct_n}, "
+                  f"{time.perf_counter() - t0:.1f} s, files {files}, plots_skipped "
+                  f"{summary.get('plots_skipped')!r} [{card}]")
             need = {"trajectory.txt", "frames.jsonl", "summary.json"} | (
                 {"slam.npz"} if slam_mode else set())
             if not need <= set(files) or n_lines != CLI_FRAMES:
@@ -1536,7 +1641,8 @@ def tools_phase(torch, extract, orbit, Rs, ts, headline, dev, card):
     print("phase 11e walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
     for tool, rows in (("profile_frame", f["stages"]), ("profile_track", tr["stages"]),
                        ("profile_direct", [r for lv in di["levels"]
-                                           for r in (lv["gn_pass"], lv["k1"], lv["sampler"])]
+                                           for r in (lv["gn_pass"], lv["gn_kernel"], lv["k1"],
+                                                     lv["sampler"])]
                         + di["level0"])):
         for r in rows:
             print(f"{tool} {r['name']}: host {r['host_ms']:.3f} ms, wall {r['wall_ms']:.3f} "
@@ -1646,6 +1752,7 @@ def dist_phase(torch, extract, dev, card):
 
                 vo._run_window_ba = counted
                 extract.launch.launches = 0
+                TRACKS.reset()
                 t0 = time.perf_counter()
                 for il, ir in frames:
                     vo.process(il, ir)
@@ -1653,6 +1760,7 @@ def dist_phase(torch, extract, dev, card):
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 launches_c = extract.launch.launches
+                direct_c = direct_held(f"10(c) dryrun StereoSLAM distribute_ba={distribute}")
                 progs = {n: vo._kernels.get(n) for n in ("ba", "ba_prep", "ba_solve", "ba_finish")}
                 replays = {n: p.replays for n, p in progs.items() if p is not None}
                 listing = {n: m for n, m in vo.program_listing().items() if n.startswith("ba")}
@@ -1668,8 +1776,8 @@ def dist_phase(torch, extract, dev, card):
                       f"in {wall:.2f} s, {nodes} nodes, {kfs} keyframes, {len(ba_calls)} window "
                       f"BAs (on the NCCL group: {on_group}), BA ms per keyframe (host clock, "
                       f"synchronised) {[round(ms, 3) for ms in ba_calls]}, ATE {ate:.6f} m, K1 "
-                      f"launches {launches_c}; programs replayed {replays}, run as {listing} "
-                      f"[{card}]")
+                      f"launches {launches_c}, direct_gn {direct_c}; programs replayed "
+                      f"{replays}, run as {listing} [{card}]")
                 # The sharded solve: eager at its first call, captured at its second.
                 n_ba = len(ba_calls)
                 want = ({"ba_prep": n_ba, "ba_solve": n_ba - 1, "ba_finish": n_ba} if distribute
@@ -1719,11 +1827,13 @@ def dist_phase(torch, extract, dev, card):
     ranks = multiprocess_ba.launch(multiprocess_ba.engine_rank, 2, device=dev,
                                    timeout=DIST_SPAWN_TIMEOUT_S)
     launches_d = sum(r["k1_launches"] for r in ranks)
+    direct_held("10(d) engine ranks", ranks)
     same = all(np.array_equal(r["c_dist"], ranks[0]["c_dist"]) for r in ranks)
     for r in ranks:
         print(f"(d) engine rank {r['rank']} of {r['world']} (gloo, one card): ATE single "
               f"{r['ate_single']:.6f} m, distributed {r['ate_dist']:.6f} m, max centre gap "
-              f"{r['max_diff']:.6f} m, K1 launches {r['k1_launches']}, the solve run as "
+              f"{r['max_diff']:.6f} m, K1 launches {r['k1_launches']}, direct_gn "
+              f"{r['direct_launches']}, the solve run as "
               f"{r['ba_solve']!r} [{card}]")
     print(f"(d) ranks equal {same}; {time.perf_counter() - t0:.1f} s")
     if not (same and all(multiprocess_ba.engine_ok(r) for r in ranks)
@@ -2476,6 +2586,7 @@ def dist_slam_phase(torch, orbit, Rs, ts, dev, card):
                                    timeout=DIST_CELL_TIMEOUT_S)
     t2 = time.perf_counter()
     raw_equal, corrected_equal, rank_gap = multiprocess_ba.slam_ranks_gap(ranks)
+    direct_held("10(e) loop SLAM cell, world 1 and the ranks", [world1] + ranks)
     bad = []
     for r in [world1] + ranks:
         pf = np.asarray(r["per_frame_s"])
@@ -2493,6 +2604,7 @@ def dist_slam_phase(torch, orbit, Rs, ts, dev, card):
               f"{SLAM_ATE_LIMIT_M}), corrected / raw centres {band[0]:.3g} / {band[1]:.3g} m "
               f"from world 1 (limit {DIST_CELL_BAND_M}; raw first 1 mm apart at frame "
               f"{apart[0] if apart.size else None}), K1 launches {r['k1_launches']}, "
+              f"direct_gn {r['direct_launches']}, "
               f"{len(r['drained'])} drained captures, hook errors {r['hook_errors']} [{card}]")
         if not (len(r["c"]) == DIST_CELL_FRAMES and np.isfinite(r["c"]).all() and r["loops"]
                 and not r["hook_errors"] and ate < SLAM_ATE_LIMIT_M and r["k1_launches"] > 0
@@ -2533,12 +2645,14 @@ def dist_cli_phase(dev, card):
             with open(os.path.join(d, "frames.jsonl")) as f:
                 states.append([json.loads(line)["state"] for line in f])
     limit = CLI_ATE_LIMITS["mono-slam"]
+    direct_held("10(f) CLI ranks", ranks)
     for rank, (r, st) in enumerate(zip(ranks, states)):
         s = r["summary"]
         print(f"(f) CLI --distribute --mode mono-slam, rank {rank} of 2: ATE "
               f"{s['ate_rmse_m']:.6f} m (limit {limit}), {s['keyframes']} keyframes, first "
               f"tracking frame {st.index('tracking') if 'tracking' in st else None}, hook errors "
-              f"{s['hook_errors']}, device {s['device']}, K1 launches {r['k1_launches']} "
+              f"{s['hook_errors']}, device {s['device']}, K1 launches {r['k1_launches']}, "
+              f"direct_gn {r['direct_launches']} "
               f"[{card}]")
     equal = np.array_equal(trajs[0], trajs[1]) and states[0] == states[1]
     print(f"(f) ranks' trajectories and states equal {equal}; {wall:.1f} s [{card}]")
@@ -2849,6 +2963,7 @@ def long_slam_phase(torch, extract, orbit, Rs, ts, metrics, dev, card):
     n_frames = LONG_CYCLES * len(orbit)
     gt_R, gt_t = (np.concatenate([x] * LONG_CYCLES) for x in (Rs, ts))
     extract.launch.launches = 0
+    TRACKS.reset()
     slam = StereoSLAM(diag_loops.stereo_config(), LoopParams(min_inliers=40, max_correction_m=4.0),
                       device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2860,6 +2975,7 @@ def long_slam_phase(torch, extract, orbit, Rs, ts, metrics, dev, card):
             per_frame, elapsed, join_s = run_cycled(slam, orbit, n_frames, SLAM_WARMUP, dispatch)
             R_est, t_est = slam.trajectory()
             launches = extract.launch.launches
+            direct_n = direct_held("15(a) StereoSLAM long run")
             peak = torch.cuda.max_memory_allocated(dev)
             pools = graph_pools(torch, slam)
         pg_R, pg_t, pg_frames = slam.graph_trajectory()
@@ -2879,7 +2995,8 @@ def long_slam_phase(torch, extract, orbit, Rs, ts, metrics, dev, card):
         print("15(a) loops (from, to, inliers): "
               + str([(lp["from"], lp["to"], lp["inliers"]) for lp in loops]))
         solve_lines(torch, "15(a)", rec, routes, pools, peak, start_bytes, card)
-        print(f"K1 launches during the long run: {launches}")
+        print(f"K1 launches during the long run: {launches}; direct_gn {direct_n}, held to the "
+              "tracks")
 
         # The last LONG_CPU_SOLVES replayed PCG solves against their padded
         # graphs solved on the CPU; the last one is held.
@@ -3022,6 +3139,7 @@ def long_mono_slam_phase(torch, extract, frames, Rs, ts, metrics, dev, card):
     n_frames = LONG_CYCLES * len(frames)
     gt_R, gt_t = (np.concatenate([x] * LONG_CYCLES) for x in (Rs, ts))
     extract.launch.launches = 0
+    TRACKS.reset()
     slam = MonoSLAM(mono_cell.slam_config(), mono_cell.slam_loop_params(), device=dev)
     recorder = diag_loops.LoopRecorder(slam)
     funnel = diag_loops.Funnel(slam)
@@ -3036,6 +3154,7 @@ def long_mono_slam_phase(torch, extract, frames, Rs, ts, metrics, dev, card):
                                                     dispatch)
             R_est, t_est = slam.trajectory()
             launches = extract.launch.launches
+            direct_n = direct_held("15(c) MonoSLAM long run")
             peak = torch.cuda.max_memory_allocated(dev)
             pools = graph_pools(torch, slam)
         n_kf = sum(r.is_keyframe for r in slam.results)
@@ -3063,7 +3182,8 @@ def long_mono_slam_phase(torch, extract, frames, Rs, ts, metrics, dev, card):
         print(f"15(c) solve-health gate: {len(accepted)} of {len(rec.solves)} solves accepted, "
               f"{len(rejected)} rejected (nodes, reasons) {rejected}")
         solve_lines(torch, "15(c)", rec, routes, pools, peak, start_bytes, card)
-        print(f"K1 launches during the long mono run: {launches}")
+        print(f"K1 launches during the long mono run: {launches}; direct_gn {direct_n}, held to "
+              "the tracks")
 
         # The last LONG_CPU_SOLVES replayed PCG solves against their padded
         # graphs solved on the CPU; the last one is held.
@@ -3255,6 +3375,7 @@ def degraded_phase(torch, extract, native, metrics, paths, Rs, ts, dev, card):
     from viso_tpu_torch.tools import diag_loops
 
     extract.launch.launches = 0
+    TRACKS.reset()
     slam = StereoSLAM(diag_loops.stereo_config(), LoopParams(min_inliers=40, max_correction_m=4.0),
                       device=dev)
     pre = native.Prefetcher(paths, ring=INGEST_RING, threads=INGEST_THREADS)
@@ -3302,6 +3423,7 @@ def degraded_phase(torch, extract, native, metrics, paths, Rs, ts, dev, card):
         slam.join()
         join_s = time.perf_counter() - t1
         launches = extract.launch.launches
+        direct_n = direct_held("16(b) degraded StereoSLAM")
         R_est, t_est = slam.trajectory()
         kf_R, kf_t, kf_frames = slam.graph_trajectory()
         nodes, loops, errors = len(slam.pg_R), list(slam.loops), list(slam.hook_errors)
@@ -3337,7 +3459,8 @@ def degraded_phase(torch, extract, native, metrics, paths, Rs, ts, dev, card):
     print(f"16(b) ATE (no scale alignment): {ate:.6f} m every frame, {kf_ate:.6f} m keyframes "
           f"(corrected); limit {DEGRADED_ATE_LIMIT_M:.6f} m, twice the JAX package's "
           f"{JAX_DEGRADED_ATE_M} m on a CPU")
-    print(f"K1 launches during the degraded run: {launches}")
+    print(f"K1 launches during the degraded run: {launches}; direct_gn {direct_n}, held to the "
+          "tracks")
     if errors:
         raise AssertionError(f"16(b): {len(errors)} keyframe hook errors, first: {errors[0]!r}")
     if not loops:
@@ -3389,11 +3512,13 @@ def fullres_phase(torch, extract, native, metrics, StereoVO, cfg, paths, Rs, ts,
     decisions (the engine's stats reach each decision one frame old on the
     card however the frames are fed). Returns K1's launches."""
     extract.launch.launches = 0
+    TRACKS.reset()
     vo = StereoVO(cfg, device=dev)
     next_pair, pre = ring_feed(native, vo, paths, FULLRES_RING)
     try:
         elapsed = run_ahead(torch, vo, next_pair, N_FRAMES, WARMUP)
         launches = extract.launch.launches
+        direct_n = direct_held("16(c) full-resolution ingest")
         R, t = vo.trajectory()
         kf = [r.is_keyframe for r in vo.results]
     finally:
@@ -3413,7 +3538,8 @@ def fullres_phase(torch, extract, native, metrics, StereoVO, cfg, paths, Rs, ts,
           f"{FULLRES_GAP_M}), poses bit-equal {bit_equal}, keyframe decisions equal "
           f"{kf == ref['kf']} ({sum(kf)} keyframes at {[i for i, k in enumerate(kf) if k]}); "
           f"ATE {ate:.6f} m (limit {ATE_LIMIT_M} m, phase 4 {ref['ate']:.6f} m)")
-    print(f"K1 launches during the full-resolution ingest: {launches}")
+    print(f"K1 launches during the full-resolution ingest: {launches}; direct_gn {direct_n}, "
+          "held to the tracks")
     if not (gap <= FULLRES_GAP_M and kf == ref["kf"] and ate < ATE_LIMIT_M and launches > 0):
         raise AssertionError(f"16(c): gap {gap} m, keyframes {kf} against {ref['kf']}, ATE "
                              f"{ate}, K1 launches {launches}")
@@ -3447,19 +3573,21 @@ def kitti_cli_phase(torch, extract, native, tmp, frames, Rs, ts, engine_ate, car
     for mode, extra in (("stereo", []), ("slam", ["--checkpoint-every", "8"])):
         out = os.path.join(tmp, f"kitti_{mode}")
         extract.launch.launches = 0
+        TRACKS.reset()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             summary = run.main(["--dataset", "kitti", "--root", root, "--sequence", "00",
                                 "--mode", mode, "--out-dir", out, *extra])
         launches += extract.launch.launches
+        direct_n = direct_held(f"16(d) CLI --dataset kitti --mode {mode}")
         with open(os.path.join(out, "frames.jsonl")) as f:
             n_lines = sum(1 for _ in f)
         files = sorted(os.listdir(out))
         print(f"16(d) CLI --dataset kitti --mode {mode}: ATE {summary['ate_rmse_m']:.6f} m (limit "
               f"{CLI_ATE_LIMITS[mode]}; phase 4's engine {engine_ate:.6f} m), "
               f"{summary['keyframes']} keyframes, device {summary['device']}, {n_lines} log "
-              f"lines, K1 launches {extract.launch.launches}, {time.perf_counter() - t0:.1f} s, "
-              f"files {files} [{card}]")
+              f"lines, K1 launches {extract.launch.launches}, direct_gn {direct_n}, "
+              f"{time.perf_counter() - t0:.1f} s, files {files} [{card}]")
         need = {"trajectory.txt", "frames.jsonl", "summary.json"} | (
             {"slam.npz"} if mode == "slam" else set())
         if not need <= set(files) or n_lines != N_FRAMES:
@@ -3529,8 +3657,9 @@ def smoke(torch, renders) -> int:
     """Phases 1-17, `main` having checked for the card and the checkout."""
     from viso_tpu_torch import _cuda
     from viso_tpu_torch.geometry import extract, extract_aligned
+    from viso_tpu_torch.ops import direct
     from viso_tpu_torch.slam.engine import StereoVO, VOConfig
-    from viso_tpu_torch.tools import bench_extract, bench_k1
+    from viso_tpu_torch.tools import bench_extract, bench_k1, profile_direct
     from viso_tpu_torch.utils import metrics
     from viso_tpu_torch.utils import profiling
     from viso_tpu_torch.utils.profiling import RECORDER
@@ -3550,6 +3679,7 @@ def smoke(torch, renders) -> int:
     paths = _cuda.build_all()
     extract.load_library()
     extract_aligned.load_library()
+    direct.load_library()
     print(f"build: {', '.join(str(p.relative_to(REPO)) for p in paths)} in "
           f"{time.perf_counter() - t0:.2f} s")
 
@@ -3563,7 +3693,12 @@ def smoke(torch, renders) -> int:
     print(f"K1 per mono keyframe's LK and photo-BA ({len(mono_kf)} calls): "
           + " ".join(f"{key}={sum(cases[n][key] for n in mono_kf):.6f}" for key in FRAME_KEYS)
           + f" [{card}]")
+    direct_frame, direct_gap = direct_cases(torch, dev, card)
     print(f"phase 3 wall {time.perf_counter() - t0:.1f} s")
+    # Every later main path's direct kernel launches, held to its tracks
+    # (`direct_held`); installed for the rest of the process.
+    global TRACKS
+    TRACKS = profile_direct.TrackLaunches().__enter__()
 
     # Phase 4: StereoVO on the headline sequence.
     t_phase = t0 = time.perf_counter()
@@ -3621,6 +3756,7 @@ def smoke(torch, renders) -> int:
     # 4c: the main path, clean: counts reset just before, read just after.
     extract.launch.launches = 0
     extract_aligned.launch.launches = 0
+    TRACKS.reset()
     vo = StereoVO(cfg, device=dev)
     for il, ir in frames[:WARMUP]:
         vo.process(il, ir)
@@ -3634,6 +3770,7 @@ def smoke(torch, renders) -> int:
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = extract.launch.launches
+    direct_4 = direct_held("4(c) StereoVO")
     fps = len(timed) / elapsed
     # Host time per process() call, no per-frame sync: the path is
     # launch-bound, so the host clock is the frame's critical path.
@@ -3651,7 +3788,7 @@ def smoke(torch, renders) -> int:
           f"[{card}]")
     print(f"ATE (no scale alignment): {ate:.6f} m clean run, {ate_a:.6f} m "
           f"4(a) run; limit {ATE_LIMIT_M} m")
-    print(f"K1 launches during the run: {launches}")
+    print(f"K1 launches during the run: {launches}; direct_gn {direct_4}, held to the tracks")
     if launches <= 0:
         raise AssertionError("the main path never launched the extraction kernel")
     if not (ate < ATE_LIMIT_M and ate_a < ATE_LIMIT_M):
@@ -3743,6 +3880,11 @@ def smoke(torch, renders) -> int:
 
     # Phase 17: results.
     print(f"total wall {time.perf_counter() - t_start:.1f} s")
+    direct_main = sum(n for _, n in DIRECT_MAIN)
+    print(f"direct_gn launches on the main paths, each held to its tracks: {direct_main} "
+          f"({dict(DIRECT_MAIN)})")
+    if direct_main <= 0:
+        raise AssertionError("no main path launched the direct GN kernel")
     # ms, plain_ms, bound_ms, library_ms: device times (CUDA graph replay),
     # K1 summed over a tracked frame's 6 calls, K2 over the tool's 12 calls.
     def record(name, source, replaces, launches, err, t):
@@ -3763,6 +3905,8 @@ def smoke(torch, renders) -> int:
                max_err, k1_frame),
         record("extract_aligned", "viso_tpu_torch/csrc/extract_aligned.cu",
                "tools/bench_extract.py:37", k2["launches"], k2["max_abs_err"], k2),
+        record("direct_gn", "viso_tpu_torch/csrc/direct_gn.cu", None, direct_main,
+               direct_gap, direct_frame),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -58,7 +58,7 @@ def test_tool_runs_on_the_cpu_when_asked(capsys, name):
     assert out["device"] == "cpu"
     stages = out.get("stages", []) + out.get("level0", [])
     for lv in out.get("levels", []):
-        stages += [lv["gn_pass"], lv["k1"], lv["sampler"]]
+        stages += [lv["gn_pass"], lv["gn_kernel"], lv["k1"], lv["sampler"]]
     for st in stages:
         # No device number from a CPU run; host times only.
         assert st["device_ms"] is None and st["stream_ms"] is None and st["kernels"] is None

@@ -13,7 +13,9 @@ a build fails; there is no fallback.
 `graph_nodes` counts a captured CUDA graph's nodes by type through the
 CUDA driver (ctypes too): the programs' kernel counts
 (`slam/programs.kernel_nodes`). `Events` are the driver's CUDA events,
-for the frame recorder (`utils/profiling`).
+for the frame recorder (`utils/profiling`). `cublas_version` reads the
+loaded cuBLAS's version (the direct kernel's check of its library
+orders, `ops/direct.check_versions`).
 """
 
 from __future__ import annotations
@@ -142,6 +144,26 @@ def launch_empty(lib):
     err = lib.viso_empty(torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
+
+
+def cublas_version():
+    """The version of the cuBLAS that torch loaded, "major.minor.patch", or
+    None where it cannot be read. Opened by its soname, which names the
+    library already loaded in the process."""
+    import torch
+
+    try:
+        torch.cuda.current_blas_handle()   # loads cuBLAS
+        lib = ctypes.CDLL(f"libcublas.so.{torch.version.cuda.split('.')[0]}")
+        get = lib.cublasGetProperty
+    except (AttributeError, OSError, RuntimeError):
+        return None
+    value, parts = ctypes.c_int(), []
+    for prop in range(3):   # MAJOR_VERSION, MINOR_VERSION, PATCH_LEVEL
+        if get(prop, ctypes.byref(value)) != 0:
+            return None
+        parts.append(str(value.value))
+    return ".".join(parts)
 
 
 # The CUDA driver's CUgraphNodeType values that `graph_nodes` names.

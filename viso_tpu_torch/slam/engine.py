@@ -178,6 +178,8 @@ class VOConfig:
     min_tracked_points: int = 30
     direct_iters: int = 6
     align_iters: int = 5
+    # Tracked points; on the card min(track_landmarks, max_landmarks)
+    # is 2 to 1,024, the direct GN kernel's limit (checked at construction).
     track_landmarks: int = 1024
     min_lost_points: int = 8
     lost_reinit_after: int = 3
@@ -316,6 +318,10 @@ class BaseVO:
     def __init__(self, config: VOConfig, device):
         self.cfg = config
         self.device = torch.device(device)
+        if self.device.type == "cuda":
+            # The direct GN kernel's limit, refused here rather than at the
+            # track's first capture.
+            direct.check_track_points(min(config.track_landmarks, config.max_landmarks))
         self.engine_id = next(_ENGINE_IDS)
         self.intr = config.intrinsics()
         # The reference holds a jax.random key here: the monocular

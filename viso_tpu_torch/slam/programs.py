@@ -27,11 +27,11 @@ inputs. Each call:
     that keeps one longer copies it. An output that is a view of an input
     (a field the program passes through) is that view.
 
-Python-side launch counters (`COUNTERS`: K1's and K2's) move when their
-wrapper launches a kernel, and a replay runs no Python. So the capture
-measures how far each counter moved inside it (the launches the graph
-holds), takes that back (a capture launches nothing), and each replay
-adds it (`Program._replayed`).
+Python-side launch counters (`COUNTERS`: K1's, K2's and the direct GN
+kernel's) move when their wrapper launches a kernel, and a replay runs
+no Python. So the capture measures how far each counter moved inside it
+(the launches the graph holds), takes that back (a capture launches
+nothing), and each replay adds it (`Program._replayed`).
 
 Each call is a span of the frame recorder (`utils/profiling.RECORDER`),
 `launch.<name>`, and a capture is `capture.<name>` inside it (or inside
@@ -85,10 +85,12 @@ import torch
 
 from viso_tpu_torch import _cuda
 from viso_tpu_torch.geometry import extract, extract_aligned
+from viso_tpu_torch.ops import direct
 from viso_tpu_torch.utils.profiling import RECORDER
 
 # (object, attribute) of each Python-side launch counter of the port.
-COUNTERS = ((extract.launch, "launches"), (extract_aligned.launch, "launches"))
+COUNTERS = ((extract.launch, "launches"), (extract_aligned.launch, "launches"),
+            (direct.launch, "launches"))
 # Eager calls on a side stream before the capture.
 WARMUP_CALLS = 2
 _SCALAR_DTYPES = {bool: torch.bool, int: torch.int64, float: torch.float32}

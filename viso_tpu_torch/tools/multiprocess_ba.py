@@ -259,10 +259,13 @@ def dryrun_slam(device, **kw):
 
 def engine_rank(device):
     """One rank of --engine: the single-rank and the distributed StereoVO
-    run. Returns centres, ATEs, K1's launches (CUDA only) and how the
-    distributed run's solve ran (`program_listing`)."""
+    run. Returns centres, ATEs, K1's and the direct kernel's launches
+    (CUDA only; the latter held to the run's track calls,
+    `profile_direct.TrackLaunches`) and how the distributed run's solve ran
+    (`program_listing`)."""
     from viso_tpu_torch.geometry import extract
     from viso_tpu_torch.slam.engine import StereoVO
+    from viso_tpu_torch.tools import profile_direct
     from viso_tpu_torch.utils import metrics
 
     frames, Rs, ts, intr_kw = engine_frames()
@@ -276,10 +279,13 @@ def engine_rank(device):
         vo.close()
         return metrics.camera_centers(R_est, t_est), listing.get("ba_solve")
 
-    c_single, _ = run()
-    extract.launch.launches = 0
-    c_dist, ba_solve = run(distribute_ba=True)
-    launches = extract.launch.launches
+    with profile_direct.TrackLaunches() as tracks:
+        c_single, _ = run()
+        extract.launch.launches = 0
+        tracks.reset()
+        c_dist, ba_solve = run(distribute_ba=True)
+        launches = extract.launch.launches
+        direct_launches = tracks.held("engine rank")
     c_gt = metrics.camera_centers(Rs, ts)
     return {
         "rank": dist.get_rank(), "world": dist.get_world_size(),
@@ -287,7 +293,7 @@ def engine_rank(device):
         "ate_single": metrics.ate_rmse(c_single, c_gt, align=True, with_scale=False),
         "ate_dist": metrics.ate_rmse(c_dist, c_gt, align=True, with_scale=False),
         "max_diff": float(np.abs(c_single - c_dist).max()), "k1_launches": launches,
-        "ba_solve": ba_solve,
+        "direct_launches": direct_launches, "ba_solve": ba_solve,
     }
 
 
@@ -299,11 +305,13 @@ def slam_rank(device, frames=None, config=None, loop_params=None, sync_first_ran
     pairs). With `sync_first_rank`, rank 0 synchronises the whole device
     after every `process()` call. Returns the raw and the corrected
     camera centres, the dryrun's checks, the loops, hook errors (as
-    text), K1's launches during the run, how the solve ran and the host
-    seconds of each `process()`."""
+    text), K1's and the direct kernel's launches during the run (the
+    latter held to its track calls, `profile_direct.TrackLaunches`), how
+    the solve ran and the host seconds of each `process()`."""
     from viso_tpu_torch.geometry import extract
     from viso_tpu_torch.slam.engine import StereoVO
     from viso_tpu_torch.slam.full import StereoSLAM
+    from viso_tpu_torch.tools import profile_direct
     from viso_tpu_torch.utils import metrics
 
     if frames is None:
@@ -316,13 +324,16 @@ def slam_rank(device, frames=None, config=None, loop_params=None, sync_first_ran
     extract.launch.launches = 0
     per_frame = []
     try:
-        for il, ir in frames:
-            t0 = time.perf_counter()
-            vo.process(il, ir)
-            if sync:
-                torch.cuda.synchronize()
-            per_frame.append(time.perf_counter() - t0)
-        vo.join()
+        with profile_direct.TrackLaunches() as tracks:
+            tracks.reset()
+            for il, ir in frames:
+                t0 = time.perf_counter()
+                vo.process(il, ir)
+                if sync:
+                    torch.cuda.synchronize()
+                per_frame.append(time.perf_counter() - t0)
+            vo.join()
+            direct_launches = tracks.held(f"slam rank {mesh.rank}")
         launches = extract.launch.launches
         R_raw, t_raw = StereoVO.trajectory(vo)
         R, t = vo.trajectory()
@@ -334,6 +345,7 @@ def slam_rank(device, frames=None, config=None, loop_params=None, sync_first_ran
             "window_bas": vo._kernels["ba_prep"].calls if "ba_prep" in vo._kernels else 0,
             "loops": [(lp["from"], lp["to"], lp["inliers"]) for lp in vo.loops],
             "hook_errors": [repr(e) for e in vo.hook_errors], "k1_launches": launches,
+            "direct_launches": direct_launches,
             "ba_solve": vo.program_listing().get("ba_solve"), "per_frame_s": per_frame,
             "drained": list(vo._loop_programs.captures),
         }
@@ -379,18 +391,23 @@ def loop_cell(pairs):
 def cli_rank(device, argv):
     """One rank of the CLI, `run.main(argv)`, on `device` in the world
     `launch` made (rank r > 0 writes into `--out-dir/rank<r>`), its
-    printed summary kept off stdout; returns the summary and K1's
-    launches during the run."""
+    printed summary kept off stdout; returns the summary and K1's and the
+    direct kernel's launches during the run (the latter held to its track
+    calls, `profile_direct.TrackLaunches`)."""
     import contextlib
     import io
 
     from viso_tpu_torch import run
     from viso_tpu_torch.geometry import extract
+    from viso_tpu_torch.tools import profile_direct
 
     extract.launch.launches = 0
-    with contextlib.redirect_stdout(io.StringIO()):
+    with profile_direct.TrackLaunches() as tracks, contextlib.redirect_stdout(io.StringIO()):
+        tracks.reset()
         summary = run.main([*argv, "--device", str(device)])
-    return {"summary": summary, "k1_launches": extract.launch.launches}
+        direct_launches = tracks.held("CLI rank")
+    return {"summary": summary, "k1_launches": extract.launch.launches,
+            "direct_launches": direct_launches}
 
 
 def engine_ok(r) -> bool:
